@@ -1,0 +1,212 @@
+"""Shared diffusion building blocks (PyTorch, NCHW).
+
+Counterpart of ``dreammat_tpu/models/diffusion/layers.py``. Module and
+parameter names follow diffusers keys, so a state dict from the weight
+bridge (``convert.py``) or a real diffusers checkpoint loads strictly.
+Numerics follow the JAX package, not diffusers, where the two differ:
+GroupNorm eps 1e-5 in every ResnetBlock (VAE included) and 1e-6 in
+Transformer2D and the VAE attention, tanh-approximate GELU in GEGLU, and
+symmetric padding in the stride-2 convs. Multi-head attention goes through
+``ops/attention.py`` (kernel A on the card); the VAE's single-head D=512
+attention stays plain matmul + softmax.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dreammat_tpu_torch.ops.attention import attention as fused_attention
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding [B, dim] (fp32), cos first when flipped."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / (half - downscale_freq_shift)
+    )
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, emb):
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int]):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(32, in_channels, eps=1e-5)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        if temb_channels is not None:
+            self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+        self.norm2 = nn.GroupNorm(32, out_channels, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Attention(nn.Module):
+    """Multi-head attention on [B, N, C] tokens (self if context is None)."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int,
+                 context_dim: Optional[int] = None, out_bias: bool = True):
+        super().__init__()
+        inner = num_heads * head_dim
+        context_dim = query_dim if context_dim is None else context_dim
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
+
+    def forward(self, x, context=None):
+        context = x if context is None else context.to(self.to_k.weight.dtype)
+        B, N, _ = x.shape
+        M = context.shape[1]
+        q = self.to_q(x).reshape(B, N, self.num_heads, self.head_dim)
+        k = self.to_k(context).reshape(B, M, self.num_heads, self.head_dim)
+        v = self.to_v(context).reshape(B, M, self.num_heads, self.head_dim)
+        out = fused_attention(q, k, v).reshape(B, N, self.num_heads * self.head_dim)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        a, g = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(g, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward, 4x expansion (diffusers ``ff.net.{0,2}`` keys)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+
+    def forward(self, x):
+        for m in self.net:
+            x = m(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, num_heads, head_dim, context_dim=cross_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """GroupNorm -> linear (or 1x1 conv) projection -> blocks -> projection."""
+
+    def __init__(self, channels: int, num_heads: int, head_dim: int, depth: int,
+                 cross_dim: int, use_linear_projection: bool = True):
+        super().__init__()
+        self.use_linear_projection = use_linear_projection
+        self.norm = nn.GroupNorm(32, channels, eps=1e-6)
+        if use_linear_projection:
+            self.proj_in = nn.Linear(channels, channels)
+            self.proj_out = nn.Linear(channels, channels)
+        else:
+            self.proj_in = nn.Conv2d(channels, channels, 1)
+            self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(channels, num_heads, head_dim, cross_dim) for _ in range(depth)]
+        )
+
+    def forward(self, x, context):
+        B, C, H, W = x.shape
+        h = self.norm(x)
+        if self.use_linear_projection:
+            h = self.proj_in(h.permute(0, 2, 3, 1).reshape(B, H * W, C))
+        else:
+            h = self.proj_in(h).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        for blk in self.transformer_blocks:
+            h = blk(h, context)
+        if self.use_linear_projection:
+            h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
+        else:
+            h = self.proj_out(h.reshape(B, H, W, C).permute(0, 3, 1, 2))
+        return h + x
+
+
+class Downsample(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class SelfAttention2D(nn.Module):
+    """VAE single-head spatial self-attention (plain matmul + fp32 softmax)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.group_norm = nn.GroupNorm(32, channels, eps=1e-6)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = self.group_norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        s = torch.matmul(q, k.transpose(1, 2)).float() / math.sqrt(C)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        out = self.to_out[0](torch.matmul(p, v))
+        return x + out.reshape(B, H, W, C).permute(0, 3, 1, 2)
