@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about three minutes
+    python3 chip_smoke.py                 # everything, about five minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -15,15 +15,32 @@ any error:
    bf16): max and mean error of O, max error of the log-sum-exp, the
    kernel's time, the plain version's, the bound, and
    ``torch.nn.functional.scaled_dot_product_attention``'s as a yardstick.
-4. Kernel B (dense ray caster) against ``cast_rays_plain`` on one 512^2
+4. Kernels C and D (flash-attention backward, dq and dk/dv) against
+   ``attention_backward_plain`` at every attention shape of ControlNet
+   training (SD2.1 width, 32^2 latents, the training batch) and at B=3,
+   N=M=4096: max and mean error and cosine of dq, dk, dv, each kernel's
+   time, the plain version's, the bounds, and the autograd backward of
+   ``scaled_dot_product_attention`` as a yardstick; then autograd through
+   ``attention`` against the plain forward and backward.
+5. Kernel B (dense ray caster) against ``cast_rays_plain`` on one 512^2
    G-buffer view and one visibility-bake batch of the level-6 icosphere.
-5. The main path: DreamMat material generation (``configs/dreammat.yaml``,
+6. Main path 1: DreamMat material generation (``configs/dreammat.yaml``,
    tables regime, SD2.1 width, random weights) through the user's entry
    points: system, datamodule setup (prerender), ``fit`` for a few steps.
-   Both launch counters are zeroed just before and read just after; each
-   must be above 0. The loss must be finite, the field must move, and one
-   view re-rendered on the CPU must agree with the card's render.
-6. A ``{"kernels": [...]}`` line, the card's line, and last
+   The launch counters are zeroed just before and read just after: kernels
+   A and B must have run, and no backward kernel (CSD stop-gradients the
+   UNet). The loss must be finite, the field must move, and one view
+   re-rendered on the CPU must agree with the card's render.
+7. Main path 2: ControlNet training (``configs/controlnet_train.yaml``,
+   SD2.1 width, resolution 256, random weights) through
+   ``dreammat_tpu_torch.train_controlnet.main`` on a synthetic dataset in
+   the native npz layout made from ``--seed`` (one object, 16 views x 5
+   environments), for a few steps. Kernels A, C and D must have run exactly
+   as often as the ControlNet and the UNet hold attentions (46 forward, 32
+   dq, 23 dk/dv per step); the loss must be finite, the ControlNet must move
+   and the frozen UNet must not; the diffusers export must load strictly
+   into the guidance through ``controlnet_path``.
+8. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -60,6 +77,22 @@ ATTN_SHAPES = [
     (4096, 77, 5), (1024, 77, 10), (256, 77, 20), (64, 77, 20),
 ]
 ATTN_B, ATTN_D = 3, 64
+
+# (N, M, H) of every D=64 attention of ControlNet training at resolution 256
+# (32^2 latents): self-attention at 32^2, 16^2, 8^2 tokens and the 4^2 mid
+# block, and cross-attention to the 77 text tokens at each
+TRAIN_ATTN_SHAPES = [
+    (1024, 1024, 5), (256, 256, 10), (64, 64, 20), (16, 16, 20),
+    (1024, 77, 5), (256, 77, 10), (64, 77, 20), (16, 77, 20),
+]
+TRAIN_CONFIG = "configs/controlnet_train.yaml"
+# per train step: the ControlNet's 7 and the UNet's 16 transformer blocks hold
+# a self- and a cross-attention each; the backward reaches the ControlNet and
+# the UNet's 9 up-path blocks (the residuals enter after the down path and
+# the mid block), and dk/dv only where k and v carry a gradient (all but the
+# UNet's cross-attention, whose k and v come from frozen weights and text)
+LAUNCHES_PER_TRAIN_STEP = {"flash_attn_fwd": 46, "flash_attn_bwd_dq": 32,
+                           "flash_attn_bwd_dkv": 23}
 
 
 def log(*a):
@@ -201,6 +234,197 @@ def phase_ray_cast(gen: torch.Generator) -> dict:
     return {"rows": rows}
 
 
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                                 dim=0).item()
+
+
+def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
+    """Kernels C and D against the plain backward (fp32 FlashAttention-2
+    equations) at the training shapes; tolerance cosine >= 0.999 and max
+    error <= 2e-2 max|ref| for each of dq, dk, dv (the kernels round p and ds
+    to bf16 before their products, as the TPU kernels do)."""
+    import torch.nn.functional as F
+
+    from dreammat_tpu_torch.ops import attention as attn
+
+    D = ATTN_D
+    cases = [(batch, N, M, H) for N, M, H in TRAIN_ATTN_SHAPES] + [(3, 4096, 4096, 5)]
+    rows = []
+    for B, N, M, H in cases:
+        q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for n in (N, M, M))
+        do = torch.randn(B, N, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        out, lse = attn.flash_attention_fwd(q, k, v)
+        delta = attn._delta(out, do)
+        dq = attn.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        ref = attn.attention_backward_plain(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            e = (got.float() - r).abs()
+            errs[name] = dict(max=e.max().item(), mean=e.mean().item(), cos=_cosine(got, r),
+                              ref_max=r.abs().max().item())
+            if not (errs[name]["cos"] >= 0.999 and errs[name]["max"] <= 2e-2 * errs[name]["ref_max"]):
+                raise AssertionError(f"attention backward B={B} N={N} M={M} H={H} {name}: "
+                                     f"{errs[name]}")
+        del ref
+        iters = 20 if B * H * N * M >= 1 << 27 else 50
+        dq_ms = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, do, lse, delta), iters)
+        dkv_ms = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta), iters)
+        plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, out, lse, do), 3)
+        # yardstick: autograd backward of SDPA (its forward done once, outside
+        # the timing), for dq alone and for dk, dv
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        lib = {}
+        for label, need in (("dq", (True, False, False)), ("dkv", (False, True, True))):
+            xs = [x.detach().requires_grad_(n) for x, n in zip((qt, kt, vt), need)]
+            o_lib = F.scaled_dot_product_attention(*xs)
+            wrt = [x for x in xs if x.requires_grad]
+            lib[label] = cuda_ms(lambda: torch.autograd.grad(o_lib, wrt, dot, retain_graph=True),
+                                 iters)
+            del o_lib
+        io_q = 2.0 * B * H * D * N
+        io_kv = 2.0 * B * H * D * M
+        stats = 8.0 * B * H * N
+        bounds = {}
+        for label, flops, nbytes in (
+                ("dq", 6.0 * B * H * N * M * D, 3 * io_q + 2 * io_kv + stats),
+                ("dkv", 8.0 * B * H * N * M * D, 2 * io_q + 4 * io_kv + stats)):
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            bounds[label] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                             flops)
+        rows.append(dict(B=B, N=N, M=M, H=H, errs=errs, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                         plain_ms=plain_ms, lib_dq_ms=lib["dq"], lib_dkv_ms=lib["dkv"],
+                         dq_bound_ms=bounds["dq"][0], dq_by=bounds["dq"][1],
+                         dkv_bound_ms=bounds["dkv"][0], dkv_by=bounds["dkv"][1]))
+        log(f"attention bwd B={B:2d} N={N:5d} M={M:5d} H={H:2d}: "
+            + ", ".join(f"{n} max {e['max']:.2e} mean {e['mean']:.2e} cos {e['cos']:.6f}"
+                        for n, e in errs.items())
+            + f" | dq {dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}, "
+            f"{bounds['dq'][2] / dq_ms / 1e9:.1f} TFLOP/s, sdpa {lib['dq']:.4f}), "
+            f"dk/dv {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}, "
+            f"{bounds['dkv'][2] / dkv_ms / 1e9:.1f} TFLOP/s, sdpa {lib['dkv']:.4f}), "
+            f"plain {plain_ms:.4f} ms")
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+
+    # autograd through attention() against the plain forward and backward
+    B, N, M, H = batch, 256, 77, 10
+    xs = [torch.randn(B, n, H, D, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+          for n in (N, M, M)]
+    do = torch.randn(B, N, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    out = attn.attention(*xs)
+    out.backward(do)
+    ref_out, ref_lse = attn._plain_with_lse(*(x.detach() for x in xs))
+    ref = attn.attention_backward_plain(*(x.detach() for x in xs), ref_out, ref_lse, do)
+    checks = [("out", out.detach(), ref_out.float())] + [
+        (f"d{n}", x.grad, r) for n, x, r in zip("qkv", xs, ref)]
+    for name, got, r in checks:
+        cos, err = _cosine(got, r), (got.float() - r).abs().max().item()
+        if not (cos >= 0.999 and err <= 2e-2 * r.abs().max().item()):
+            raise AssertionError(f"autograd through attention: {name} cosine {cos}, max {err}")
+    log(f"attention autograd B={B} N={N} M={M} H={H}: out, dq, dk, dv within tolerance")
+    return {"rows": rows}
+
+
+def write_controlnet_dataset(root: str, seed: int, res: int = 256, views: int = 16,
+                             envs: int = 5) -> str:
+    """One object in the native npz layout (f16, as the dataset generator
+    writes it) and its prompts.json; returns the prompts file."""
+    rng = np.random.default_rng(seed)
+    obj = os.path.join(root, "obj0")
+    os.makedirs(obj, exist_ok=True)
+    u = lambda *shape: rng.random(shape, dtype=np.float32).astype(np.float16)
+    np.savez(os.path.join(obj, "data.npz"), colors=u(views, envs, res, res, 3),
+             depths=u(views, res, res, 1), normals=u(views, res, res, 3),
+             lightmaps=u(views, envs, res, res, 18))
+    prompts = os.path.join(root, "prompts.json")
+    with open(prompts, "w") as f:
+        json.dump({"obj0": "a ceramic vase with a glossy glaze"}, f)
+    return prompts
+
+
+def phase_controlnet(steps: int, batch: int, seed: int, work_dir: str) -> dict:
+    import csv
+    import shutil
+
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch import train_controlnet
+    from dreammat_tpu_torch.ops import attention as attn
+
+    data_dir = os.path.join(work_dir, "data")
+    out_dir = os.path.join(work_dir, "run")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    t0 = time.time()
+    prompts = write_controlnet_dataset(data_dir, seed)
+    log(f"controlnet: synthetic dataset (1 object, 16 views x 5 envs, 256^2, f16) written in "
+        f"{time.time() - t0:.1f}s")
+    argv = ["--config", TRAIN_CONFIG, "--max-steps", str(steps),
+            "sd_cache_dir=null", f"train_data_dir={data_dir}", f"prompt_file_path={prompts}",
+            f"controlnet_dir={out_dir}", f"seed={seed}"]
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    res = train_controlnet.main(argv)
+    torch.cuda.synchronize()
+    t_main = time.time() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer = res["trainer"]
+
+    want = {name: n * steps for name, n in LAUNCHES_PER_TRAIN_STEP.items()}
+    log(f"controlnet: launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"controlnet launches {counts}, expected {want}")
+    with open(os.path.join(out_dir, "logs", "metrics.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"controlnet losses {losses}")
+
+    # the same seed re-initializes the same weights: the ControlNet moved,
+    # the frozen UNet did not
+    ref = dreammat_tpu_torch.find("controlnet-trainer")(trainer.cfg, device="cuda")
+    ref.init_params()
+    ref_cnet, ref_unet = ref.controlnet.state_dict(), ref.unet.state_dict()
+    moved = max((p - ref_cnet[n]).abs().max().item()
+                for n, p in trainer.controlnet.state_dict().items())
+    unet_same = all(torch.equal(p, ref_unet[n]) for n, p in trainer.unet.state_dict().items())
+    del ref, ref_cnet, ref_unet
+    if not moved > 0 or not unet_same:
+        raise AssertionError(f"controlnet moved {moved}, frozen UNet unchanged {unet_same}")
+
+    # the export loads strictly into the guidance through controlnet_path
+    export = res["export"]
+    guidance = dreammat_tpu_torch.find("stable-diffusion-dreammat-guidance")(
+        {"controlnet_path": os.path.dirname(export), "cache_dir": None}, device="cuda")
+    guidance.init_params()
+    mine = trainer.controlnet.state_dict()
+    loaded = all(torch.equal(p, mine[n].to(p.dtype))
+                 for n, p in guidance.controlnets[0].state_dict().items())
+    if not loaded:
+        raise AssertionError("the guidance's ControlNet differs from the exported one")
+    del guidance
+    export_gb = os.path.getsize(export) / 1e9
+
+    step_s = trainer.step_seconds
+    warm = step_s[1:] if len(step_s) > 1 else step_s
+    log(f"controlnet: {steps} steps at batch {batch} in {t_main:.1f}s (init, data, save and "
+        f"export included); step seconds {', '.join(f'{x:.4f}' for x in step_s)}, warm mean "
+        f"{np.mean(warm):.4f}s; losses {', '.join(f'{x:.6g}' for x in losses)}; ControlNet "
+        f"max |moved| {moved:.3e}, frozen UNet bitwise unchanged; export {export_gb:.2f} GB "
+        f"loads strictly into the guidance; peak memory {peak_gb:.2f} GB")
+    del trainer, res
+    shutil.rmtree(work_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "batch": batch, "warm_step_s": float(np.mean(warm)),
+            "step_s": step_s, "peak_gb": peak_gb, "losses": losses, "moved": moved}
+
+
 def main_config(views: int):
     """``configs/dreammat.yaml`` as the smoke run drives it: random weights,
     the level-6 icosphere, procedural skies, ``views`` fixed cameras, no
@@ -231,6 +455,8 @@ def phase_main(steps: int, views: int, out_dir: str) -> dict:
     find = dreammat_tpu_torch.find
     torch.cuda.reset_peak_memory_stats()
     attn.flash_attention_fwd.launches = 0
+    attn.flash_attention_bwd_dq.launches = 0
+    attn.flash_attention_bwd_dkv.launches = 0
     bvh_lib.cast_rays_dense.launches = 0
     t0 = time.time()
     system = find(cfg.system_type)(cfg.system, device="cuda")
@@ -266,6 +492,7 @@ def phase_main(steps: int, views: int, out_dir: str) -> dict:
     t_fit = time.time() - t0
     counts = {"flash_attn_fwd": attn.flash_attention_fwd.launches,
               "ray_cast": bvh_lib.cast_rays_dense.launches}
+    bwd = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     with open(os.path.join(out_dir, "trial", "logs", "metrics.csv")) as f:
@@ -287,6 +514,10 @@ def phase_main(steps: int, views: int, out_dir: str) -> dict:
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if bwd != 0:
+        raise AssertionError(f"{bwd} attention backward launches on the DreamMat path "
+                             "(CSD stop-gradients the UNet)")
+    log("main: 0 attention backward launches (CSD's stop-gradient holds)")
 
     # one view re-rendered on the CPU from the same field, G-buffer and table
     batch = dm.collate(step=steps)
@@ -320,6 +551,7 @@ def main() -> int:
                     help="build and check the kernels, skip the main path")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--views", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0, help="seed of the synthetic training data")
     ap.add_argument("--out", default="outputs/chip_smoke")
     args = ap.parse_args()
 
@@ -339,23 +571,55 @@ def main() -> int:
     phase_build(args.out)
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_res = phase_attention(gen)
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        batch = yaml.safe_load(f)["train_batch_size"]
+    bwd_res = phase_attention_bwd(gen, batch)
     cast_res = phase_ray_cast(gen)
     counts = {"flash_attn_fwd": None, "ray_cast": None}
+    cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
+    main_res = cn_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
+        cn_res = phase_controlnet(args.steps, batch, args.seed,
+                                  os.path.join("outputs", "chip_smoke_controlnet"))
+        cn_counts = cn_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
+    # the backward kernels' largest shape on the ControlNet-training path
+    c = max((r for r in bwd_res["rows"] if r["B"] == batch), key=lambda r: r["N"] * r["M"])
+    c_work = f"B={c['B']} N={c['N']} M={c['M']} H={c['H']} D={ATTN_D} bf16"
     kernels = [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "dreammat_tpu/ops/attention.py:42",
          "launches": counts["flash_attn_fwd"],
+         "launches_by_path": {"dreammat": counts["flash_attn_fwd"],
+                              "controlnet_training": cn_counts["flash_attn_fwd"]},
          "max_abs_err": max(r["max_err"] for r in attn_res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["by"], "library_ms": a["lib_ms"],
          "work": f"B={ATTN_B} N={a['N']} M={a['M']} H={a['H']} D={ATTN_D} bf16"},
+        {"name": "flash_attn_bwd_dq", "route": "cuda",
+         "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "dreammat_tpu/ops/attention.py:115",
+         "launches": cn_counts["flash_attn_bwd_dq"],
+         "max_abs_err": max(r["errs"]["dq"]["max"] for r in bwd_res["rows"]),
+         "ms": c["dq_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dq_bound_ms"],
+         "bound_by": c["dq_by"], "library_ms": c["lib_dq_ms"],
+         "work": c_work + "; plain_ms computes dq, dk and dv; library: autograd of SDPA wrt q"},
+        {"name": "flash_attn_bwd_dkv", "route": "cuda",
+         "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "dreammat_tpu/ops/attention.py:146",
+         "launches": cn_counts["flash_attn_bwd_dkv"],
+         "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
+                            for r in bwd_res["rows"]),
+         "ms": c["dkv_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dkv_bound_ms"],
+         "bound_by": c["dkv_by"], "library_ms": c["lib_dkv_ms"],
+         "work": c_work + "; plain_ms computes dq, dk and dv; library: autograd of SDPA wrt k, v"},
         {"name": "ray_cast", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/ray_cast.cu",
          "replaces": "dreammat_tpu/ops/bvh.py:579",
@@ -367,8 +631,9 @@ def main() -> int:
                  f"after the tile cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
-        json.dump({"attention": attn_res, "ray_cast": cast_res, "kernels": kernels,
-                   "main": None if args.kernels_only else main_res, "card": card}, f, indent=1)
+        json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res,
+                   "kernels": kernels, "main": main_res, "controlnet": cn_res, "card": card},
+                  f, indent=1)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

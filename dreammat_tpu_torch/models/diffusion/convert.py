@@ -6,15 +6,18 @@ the same key mangling (flat flax module names such as ``down_blocks_0`` to
 diffusers' dotted ``down_blocks.0``) and kernel transposes
 (conv HWIO -> OIHW, dense IO -> OI). It works on nested dicts of numpy
 arrays, so no JAX is needed to run it. Covers ``unet``, ``controlnet``,
-``vae`` and ``clip``. Also holds the random initialization the port uses
-when no checkpoint is present, and ``geometry_params_from_numpy`` for the
-material field.
+``vae`` and ``clip``; ``controlnet_trainer_state_from_flax`` carries the JAX
+ControlNet trainer's whole parameter tree across. Also holds the random
+initialization the port uses when no checkpoint is present, the checkpoint
+file lookup and reader for diffusers-layout weights, and
+``geometry_params_from_numpy`` for the material field.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +87,42 @@ def flax_to_torch_state_dict(flax_params: Mapping, model_type: str = "unet") -> 
         arr = np.array(_to_torch_array(path[-1], np.asarray(leaf, dtype=np.float32)))
         out[key] = torch.from_numpy(arr)
     return out
+
+
+def controlnet_trainer_state_from_flax(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ControlNet trainer's ``init_params`` tree as numpy,
+    ``{"frozen": {"unet", "vae", "clip"}, "controlnet"}``, -> the state dicts
+    ``{"unet", "vae", "clip", "controlnet"}`` of the port trainer's modules
+    (``ControlNetTrainer.load_state_dicts``)."""
+    frozen = params["frozen"]
+    out = {kind: flax_to_torch_state_dict(frozen[kind], kind) for kind in ("unet", "vae", "clip")}
+    out["controlnet"] = flax_to_torch_state_dict(params["controlnet"], "controlnet")
+    return out
+
+
+def find_checkpoint_file(model_dir: str,
+                         names=("diffusion_pytorch_model", "model", "pytorch_model")) -> Optional[str]:
+    """The first ``<name>.{safetensors,bin,pt}`` in ``model_dir``, or None."""
+    for n in names:
+        for ext in (".safetensors", ".bin", ".pt"):
+            p = os.path.join(model_dir, n + ext)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """A diffusers / transformers checkpoint file as a state dict on the host:
+    safetensors through the port's own reader, .bin/.pt through
+    ``torch.load(weights_only=True)``."""
+    if path.endswith(".safetensors"):
+        from dreammat_tpu_torch.utils.safetensors_io import load_file
+
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
 
 
 def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:

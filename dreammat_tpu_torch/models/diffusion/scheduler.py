@@ -1,6 +1,8 @@
-"""DDPM forward-process schedule (SD 2.x: scaled-linear betas 0.00085 ->
-0.012 over 1000 steps, epsilon prediction). Counterpart of the parts of
-``dreammat_tpu/models/diffusion/scheduler.py`` the CSD loss uses."""
+"""DDPM forward process and deterministic DDIM sampling (SD 2.x:
+scaled-linear betas 0.00085 -> 0.012 over 1000 steps, epsilon prediction).
+Counterpart of ``dreammat_tpu/models/diffusion/scheduler.py``: the CSD loss
+uses ``add_noise``; ControlNet training adds noise and samples its
+validation grid with ``ddim_step`` over ``ddim_timesteps``."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from dreammat_tpu_torch.utils.hw import resolve_device
 
 
 @dataclass(frozen=True)
@@ -17,14 +21,40 @@ class SchedulerConfig:
     beta_end: float = 0.012
 
 
-def make_schedule(cfg: SchedulerConfig = SchedulerConfig(), device="cpu"):
+def make_schedule(cfg: SchedulerConfig = SchedulerConfig(), device="cuda"):
     betas = np.linspace(cfg.beta_start ** 0.5, cfg.beta_end ** 0.5, cfg.num_train_timesteps) ** 2
     alphas_cumprod = np.cumprod(1.0 - betas)
-    return {"alphas_cumprod": torch.tensor(alphas_cumprod, dtype=torch.float32, device=device)}
+    return {"alphas_cumprod": torch.tensor(alphas_cumprod, dtype=torch.float32,
+                                           device=resolve_device(device))}
+
+
+def _per_sample(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return a.reshape((-1,) + (1,) * (x.ndim - 1))
 
 
 def add_noise(schedule, samples: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """q(x_t | x_0) = sqrt(a_t) x0 + sqrt(1 - a_t) eps; t [B] int."""
-    a = schedule["alphas_cumprod"][t]
-    shape = (-1,) + (1,) * (samples.ndim - 1)
-    return torch.sqrt(a).reshape(shape) * samples + torch.sqrt(1.0 - a).reshape(shape) * noise
+    a = _per_sample(schedule["alphas_cumprod"][t], samples)
+    return torch.sqrt(a) * samples + torch.sqrt(1.0 - a) * noise
+
+
+def pred_x0_from_eps(schedule, x_t: torch.Tensor, eps: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    a = _per_sample(schedule["alphas_cumprod"][t], x_t)
+    return (x_t - torch.sqrt(1.0 - a) * eps) / torch.sqrt(a)
+
+
+def ddim_step(schedule, x_t: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,
+              t_prev: torch.Tensor) -> torch.Tensor:
+    """One deterministic DDIM step t -> t_prev (eta = 0); t_prev < 0 is the
+    final step to x_0 (alpha_prev = 1)."""
+    ac = schedule["alphas_cumprod"]
+    a_prev = _per_sample(torch.where(t_prev >= 0, ac[torch.clamp(t_prev, min=0)],
+                                     torch.ones_like(ac[t])), x_t)
+    x0 = pred_x0_from_eps(schedule, x_t, eps, t)
+    return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+
+
+def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """Descending timestep sequence for DDIM sampling."""
+    step = num_train_timesteps // num_inference_steps
+    return (np.arange(0, num_inference_steps) * step).round()[::-1].astype(np.int64)

@@ -12,12 +12,16 @@ one batched ControlNet + UNet pass under ``torch.no_grad()`` (the JAX
 stop-gradient). The condition stack stays batch 1, so the ControlNet's
 image-resolution stem runs once for the three replicas.
 
-Weights are random-initialized (no checkpoints exist for this repository
-yet); ``half_precision_weights`` stores them in bf16.
+Weights are random-initialized, except that a trained ControlNet in the
+diffusers layout (``diffusion_pytorch_model.safetensors``, as
+``ControlNetTrainer.export_diffusers`` writes it) under ``controlnet_path``
+is loaded strictly into the first ControlNet, as the JAX guidance does;
+``half_precision_weights`` stores them in bf16.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -26,7 +30,9 @@ import torch.nn.functional as F
 
 import dreammat_tpu_torch
 from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNetConfig
-from dreammat_tpu_torch.models.diffusion.convert import build_on, random_init_
+from dreammat_tpu_torch.models.diffusion.convert import (
+    build_on, find_checkpoint_file, load_state_dict_file, random_init_,
+)
 from dreammat_tpu_torch.models.diffusion.scheduler import SchedulerConfig, add_noise, make_schedule
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
@@ -92,7 +98,8 @@ class StableDiffusionLightGuidance(BaseObject):
         return 2 ** (len(self.vae_cfg.block_out_channels) - 1)
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
-        """Random-initialize the frozen UNet, VAE and ControlNets on the device."""
+        """Random-initialize the frozen UNet, VAE and ControlNets on the device,
+        then load a trained ControlNet from ``controlnet_path`` if it holds one."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
@@ -103,6 +110,12 @@ class StableDiffusionLightGuidance(BaseObject):
         self.unet = make(lambda: UNet2DCondition(self.unet_cfg))
         self.vae = make(lambda: AutoencoderKL(self.vae_cfg))
         self.controlnets = [make(lambda c=c: ControlNet(c)) for c in self.controlnet_cfgs]
+        path = self.cfg.controlnet_path
+        if self.controlnets and path and os.path.isdir(str(path)):
+            ckpt = find_checkpoint_file(str(path))
+            if ckpt:
+                self.controlnets[0].load_state_dict(load_state_dict_file(ckpt), strict=True)
+                dreammat_tpu_torch.info("loaded controlnet weights from %s", ckpt)
 
     def encode_images(self, rgb: torch.Tensor, eps: Optional[torch.Tensor]) -> torch.Tensor:
         """[B,3,H,W] in [0,1] -> scaled latents [B,4,h,w] (fp32)."""

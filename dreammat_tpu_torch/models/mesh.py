@@ -17,6 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dreammat_tpu_torch.utils.hw import resolve_device
+
 
 def load_obj(path: str):
     """Minimal OBJ reader: v / vt / f (fan-triangulated)."""
@@ -66,7 +68,8 @@ class Mesh:
     t_tex_idx: Optional[torch.Tensor] = None  # [F,3]
 
     @staticmethod
-    def from_numpy(v, f, vt=None, ft=None, device="cpu") -> "Mesh":
+    def from_numpy(v, f, vt=None, ft=None, device="cuda") -> "Mesh":
+        device = resolve_device(device)
         return Mesh(
             v_pos=torch.as_tensor(np.asarray(v, np.float32), device=device),
             t_pos_idx=torch.as_tensor(np.asarray(f, np.int64), device=device),
@@ -84,7 +87,7 @@ _DIR2VEC = {
 
 
 def load_mesh(path: str, scale: Optional[float] = None, mesh_up: str = "+z",
-              mesh_front: str = "+x", device="cpu") -> Mesh:
+              mesh_front: str = "+x", device="cuda") -> Mesh:
     """Load and normalize an OBJ: center at the vertex centroid, rotate so
     ``mesh_up``/``mesh_front`` map to +z/+x, scale the max |coord| to
     ``scale``, and make the winding point outward."""
@@ -156,6 +159,6 @@ def icosphere_arrays(subdiv: int = 2, radius: float = 1.0):
     return (verts * radius).astype(np.float32), faces.astype(np.int32)
 
 
-def make_icosphere(subdiv: int = 2, radius: float = 1.0, device="cpu") -> Mesh:
+def make_icosphere(subdiv: int = 2, radius: float = 1.0, device="cuda") -> Mesh:
     v, f = icosphere_arrays(subdiv, radius)
     return Mesh.from_numpy(v, f, device=device)

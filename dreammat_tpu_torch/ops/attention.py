@@ -1,16 +1,20 @@
-"""Flash attention for the diffusion UNet and ControlNet.
+"""Flash attention for the diffusion UNet and ControlNet, forward and backward.
 
-Counterpart of ``dreammat_tpu/ops/attention.py``. On a CUDA tensor every call
-launches the hand-written forward kernel ``csrc/flash_attn_fwd.cu`` (kernel
-A, which replaces the Pallas ``_fwd_kernel``); on a CPU tensor it runs
-``attention_plain``, the plain PyTorch version of the same function. There is
-no dispatch gate by length: every D=64 bf16 attention of the UNet and
-ControlNet, self and cross, goes through the kernel on the card.
+Counterpart of ``dreammat_tpu/ops/attention.py``. On CUDA tensors every call
+launches hand-written kernels: the forward ``csrc/flash_attn_fwd.cu``
+(kernel A, which replaces the Pallas ``_fwd_kernel``) and, through autograd,
+the backward ``csrc/flash_attn_bwd.cu`` (kernel C for dq, which replaces
+``_bwd_dq_kernel``; kernel D for dk and dv, which replaces
+``_bwd_dkv_kernel``). On CPU tensors ``attention`` runs ``attention_plain``,
+the plain PyTorch version, and autograd differentiates that. There is no
+dispatch gate by length: every D=64 bf16 attention of the UNet and
+ControlNet, self and cross, goes through the kernels on the card.
 
-Layout is the JAX package's ``[B, N, H, D]``. The kernel reads and writes it
-through strides and also returns the per-row log-sum-exp ``[B*H, N]`` f32
-that the backward kernels of a later slice will consume. The backward is not
-ported yet: differentiating through the CUDA path raises.
+Layout is the JAX package's ``[B, N, H, D]``, read and written through
+strides. The forward saves q, k, v, O and the per-row log-sum-exp L
+``[B*H, N]`` f32; the backward computes D = rowsum(dO * O) in PyTorch (the
+JAX package computes it outside its kernels too) and launches kernel C when
+q needs a gradient and kernel D when k or v does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,14 @@ import torch
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+_DQ_ARGTYPES = (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+_DKV_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 18
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -43,6 +55,40 @@ def _plain_with_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, lse.reshape(B * H, N)
 
 
+def attention_backward_plain(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in fp32 by the FlashAttention-2 equations: p = exp(scale
+    q.k - L), D = rowsum(dO * O), dv = p^T dO, ds = p (dO v^T - D),
+    dq = scale ds k, dk = scale ds^T q. q/o/do [B,N,H,D], k/v [B,M,H,D],
+    lse [B*H, N]."""
+    return _plain_bwd(q, k, v, do, lse, _delta(o, do))
+
+
+def _delta(o, do) -> torch.Tensor:
+    """D = rowsum(dO * O) in fp32, as [B*H, N]."""
+    B, N, H, _ = o.shape
+    d = (do.float() * o.float()).sum(-1)  # [B,N,H]
+    return d.permute(0, 2, 1).reshape(B * H, N).contiguous()
+
+
+def _plain_bwd(q, k, v, do, lse, delta):
+    B, N, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(B, H, N, 1))
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = p * (dp - delta.reshape(B, H, N, 1))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq, dk, dv
+
+
+def _layout_ok(t: torch.Tensor) -> bool:
+    """Unit-stride head dim, 8-element-aligned strides, 16-byte-aligned base."""
+    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
 def _check_cuda_inputs(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_fwd expects q/k/v of rank 4 [B,N,H,D]")
@@ -58,13 +104,17 @@ def _check_cuda_inputs(q, k, v) -> None:
             raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
         if t.device != q.device:
             raise ValueError("q, k and v must be on the same device")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if not _layout_ok(t):
             raise ValueError(
                 f"{name} must have a unit-stride head dim, 8-element-aligned strides "
                 "and a 16-byte-aligned base pointer"
             )
     if B * H > 65535:
         raise ValueError("B*H exceeds the grid limit of 65535")
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -83,11 +133,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, N, M, H,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
+        B, N, M, H, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
         1.0 / math.sqrt(D), stream,
     )
     if rc != 0:
@@ -99,18 +145,105 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
+    _check_cuda_inputs(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"dO shape {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    if do.dtype != torch.bfloat16:
+        raise TypeError(f"dO must be bfloat16 on CUDA, got {do.dtype}")
+    if do.device != q.device or not _layout_ok(do):
+        raise ValueError(
+            "dO must be on q's device, with a unit-stride head dim, 8-element-aligned "
+            "strides and a 16-byte-aligned base pointer"
+        )
+    B, N, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, N) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 [B*H, N] = [{B * H}, {N}]")
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on q's device")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+    """dq [B,N,H,D] in q's dtype. CUDA tensors launch kernel C, CPU tensors
+    run the plain version."""
+    if q.device.type == "cpu":
+        return _plain_bwd(q, k, v, do, lse, delta)[0].to(q.dtype)
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    from dreammat_tpu_torch.ops import kernels
+
+    fn = kernels.function("flash_attn_bwd", "flash_attn_bwd_dq_bf16_d64", _DQ_ARGTYPES)
+    B, N, H, D = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, N, k.shape[1], H,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd dq kernel launch failed (cudaError {rc})")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B,M,H,D] in k's and v's dtype. CUDA tensors launch kernel D,
+    CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        _, dk, dv = _plain_bwd(q, k, v, do, lse, delta)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    from dreammat_tpu_torch.ops import kernels
+
+    fn = kernels.function("flash_attn_bwd", "flash_attn_bwd_dkv_bf16_d64", _DKV_ARGTYPES)
+    B, N, H, D = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, k.shape[1], H,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk), *_strides(dv),
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd dk/dv kernel launch failed (cudaError {rc})")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, need_dq: bool = True, need_dkv: bool = True):
+    """(dq, dk, dv) of attention at (q, k, v) with output o, log-sum-exp lse
+    and output gradient do; a gradient that is not needed comes back None
+    and its kernel is not launched."""
+    delta = _delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta) if need_dq else None
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta) if need_dkv else (None, None)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        out, _ = flash_attention_fwd(q, k, v)
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "slice 2: the flash-attention backward kernels (_bwd_dq_kernel, "
-            "_bwd_dkv_kernel) are not ported yet"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad
+        if not _layout_ok(grad_out):
+            grad_out = grad_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, grad_out, need_dq=need_q,
+                                         need_dkv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

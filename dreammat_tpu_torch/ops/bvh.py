@@ -30,6 +30,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from dreammat_tpu_torch.utils.hw import resolve_device
+
 LEAF_SIZE = 4
 MISS_DEPTH = 10.0
 DENSE_CAST_MAX_TRIS = 1 << 22
@@ -196,9 +198,10 @@ def _build_python(vertices: np.ndarray, faces: np.ndarray):
     return node_min, node_max, node_miss, node_first, node_count, np.asarray(out_tris, np.int64)
 
 
-def build_bvh(vertices: np.ndarray, faces: np.ndarray, device="cpu",
+def build_bvh(vertices: np.ndarray, faces: np.ndarray, device="cuda",
               use_native: bool = True) -> FlatBVH:
     """Host BVH build; the flat arrays land on ``device``."""
+    device = resolve_device(device)
     vertices = np.asarray(vertices, dtype=np.float32)
     faces = np.asarray(faces, dtype=np.int64)
     built = _build_native(vertices, faces) if use_native else None

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from dreammat_tpu_torch.utils import ops as uops
+from dreammat_tpu_torch.utils.hw import resolve_device
 
 
 def make_procedural_envmap(height: int = 256, width: int = 512, sun_dir=(0.5, 0.5, 0.7),
@@ -87,11 +88,12 @@ def _hammersley(n: int):
     return u1.astype(np.float32), u2.astype(np.float32)
 
 
-def compute_fg_lut(res: int = 256, n_samples: int = 512, device="cpu",
+def compute_fg_lut(res: int = 256, n_samples: int = 512, device="cuda",
                    row_chunk: int = 32) -> torch.Tensor:
     """Karis split-sum (scale, bias) for F0 as a [res, res, 2] LUT indexed
     [NoV, linear roughness]; Hammersley-sampled GGX, Schlick-GGX geometry
     with k = alpha/2."""
+    device = resolve_device(device)
     u1, u2 = (torch.as_tensor(a, device=device) for a in _hammersley(n_samples))
     phi = 2.0 * math.pi * u1                                     # [S]
     rough = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res

@@ -23,6 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dreammat_tpu_torch")
 
 SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
     "ray_cast": "ray_cast.cu",
 }
 

@@ -104,9 +104,117 @@ def test_kernel_matches_plain_on_cuda(cuda, shape):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+BWD_SHAPES = [SHAPES[0], SHAPES[1], SHAPES[2]]  # incl. ragged N=M=300 and cross M=77
+
+
+@pytest.fixture(scope="module")
+def jax_bwd_refs():
+    """Per BWD_SHAPES entry: the inputs, the output gradient, the JAX flash
+    forward's O and L, its flash backward (interpret mode) and jax.vjp of
+    reference_attention."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from dreammat_tpu.ops import attention as jattn
+
+    refs = {}
+    for shape in BWD_SHAPES:
+        q, k, v = _inputs(*shape, seed=2)
+        g = np.random.RandomState(3).normal(size=q.shape).astype(np.float32)
+        jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+        o, lse = jattn._flash_forward(jq, jk, jv, block_q=128, block_k=128, interpret=True)
+        flash = jattn._flash_backward(jq, jk, jv, o, lse, jg, block_q=128, block_k=128,
+                                      interpret=True)
+        vjp = jax.vjp(jattn.reference_attention, jq, jk, jv)[1](jg)
+        B, N, H = q.shape[0], q.shape[1], q.shape[2]
+        refs[shape] = dict(
+            q=q, k=k, v=v, g=g, o=np.array(o), lse=np.array(lse)[:, :N, 0].reshape(B * H, N),
+            flash=[np.asarray(x) for x in flash], ref=[np.asarray(x) for x in vjp])
+    return refs
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_plain_backward_matches_jax(shape, jax_bwd_refs):
+    r = jax_bwd_refs[shape]
+    t = {n: torch.from_numpy(r[n]) for n in ("q", "k", "v", "o", "lse", "g")}
+    got = tattn.attention_backward_plain(t["q"], t["k"], t["v"], t["o"], t["lse"], t["g"])
+    for name, a, fl, ref in zip("qkv", got, r["flash"], r["ref"]):
+        assert np.abs(a.numpy() - fl).max() <= 1e-4, f"d{name} vs the JAX flash backward"
+        assert np.abs(a.numpy() - ref).max() <= 1e-4, f"d{name} vs jax.vjp of the reference"
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_cpu_autograd_matches_jax(shape, jax_bwd_refs):
+    r = jax_bwd_refs[shape]
+    q, k, v = (torch.from_numpy(r[n]).requires_grad_(True) for n in "qkv")
+    before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+    tattn.attention(q, k, v).backward(torch.from_numpy(r["g"]))
+    assert (tattn.flash_attention_bwd_dq.launches,
+            tattn.flash_attention_bwd_dkv.launches) == before  # no kernel on the CPU
+    for name, x, fl, ref in zip("qkv", (q, k, v), r["flash"], r["ref"]):
+        assert np.abs(x.grad.numpy() - ref).max() <= 1e-4, f"d{name} vs jax.vjp of the reference"
+        assert np.abs(x.grad.numpy() - fl).max() <= 1e-4, f"d{name} vs the JAX flash backward"
+
+
+def test_cpu_backward_wrappers_run_plain():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 40, 77, 3, 64, seed=4))
+    out, lse = tattn.flash_attention_fwd(q, k, v)
+    do = torch.from_numpy(np.random.RandomState(5).normal(size=q.shape).astype(np.float32))
+    dq, dk, dv = tattn.flash_attention_bwd(q, k, v, out, lse, do)
+    ref = tattn.attention_backward_plain(q, k, v, out, lse, do)
+    for a, b in zip((dq, dk, dv), ref):
+        assert torch.equal(a, b)
+    assert tattn.flash_attention_bwd(q, k, v, out, lse, do, need_dq=False)[0] is None
+    assert tattn.flash_attention_bwd(q, k, v, out, lse, do, need_dkv=False)[1:] == (None, None)
+
+
+def _close_bf16(got, ref):
+    """bf16 kernel against the fp32 plain version: cosine >= 0.999 and max
+    error <= 2e-2 * max|ref| (ds and p are rounded to bf16 inside the kernels)."""
+    g, r = got.float().flatten(), ref.float().flatten()
+    cos = torch.nn.functional.cosine_similarity(g, r, dim=0).item()
+    err = (g - r).abs().max().item()
+    return cos >= 0.999 and err <= 2e-2 * r.abs().max().item(), (cos, err)
+
+
 @pytest.mark.cuda
-def test_kernel_backward_is_not_ported(cuda):
-    q = torch.randn(1, 64, 1, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    out = tattn.attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+@pytest.mark.parametrize("shape", [(8, 1024, 1024, 5, 64), (8, 16, 77, 20, 64),
+                                   (2, 300, 200, 4, 64), (3, 200, 300, 2, 64)])
+def test_backward_kernels_match_plain_on_cuda(cuda, shape):
+    B, N, M, H, D = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    # q and dO as strided views of packed tensors, as the UNet's projections give them
+    q = torch.randn(B, N, 2, H, D, generator=g, device=cuda).to(torch.bfloat16)[:, :, 1]
+    k, v = (torch.randn(B, M, H, D, generator=g, device=cuda).to(torch.bfloat16) for _ in "kv")
+    do = torch.randn(B, N, 2, H, D, generator=g, device=cuda).to(torch.bfloat16)[:, :, 0]
+    out, lse = tattn.flash_attention_fwd(q, k, v)
+    before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+    got = tattn.flash_attention_bwd(q, k, v, out, lse, do)
+    assert (tattn.flash_attention_bwd_dq.launches - before[0],
+            tattn.flash_attention_bwd_dkv.launches - before[1]) == (1, 1)
+    ref = tattn.attention_backward_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, ref):
+        ok, (cos, err) = _close_bf16(a, b)
+        assert ok, f"d{name}: cosine {cos:.6f}, max |err| {err:.3e}"
+
+
+@pytest.mark.cuda
+def test_autograd_launches_only_the_needed_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, n, 4, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (256, 77, 77))
+    dout = torch.randn(2, 256, 4, 64, generator=g, device=cuda).to(torch.bfloat16)
+    for needs, want in (("q", (1, 0)), ("kv", (0, 1)), ("qkv", (1, 1))):
+        xs = [x.clone().requires_grad_(n in needs) for n, x in zip("qkv", (q, k, v))]
+        before = (tattn.flash_attention_bwd_dq.launches, tattn.flash_attention_bwd_dkv.launches)
+        tattn.attention(*xs).backward(dout)
+        assert (tattn.flash_attention_bwd_dq.launches - before[0],
+                tattn.flash_attention_bwd_dkv.launches - before[1]) == want
+        out, lse = tattn.flash_attention_fwd(q, k, v)
+        ref = tattn.attention_backward_plain(q, k, v, out, lse, dout)
+        for x, r in zip(xs, ref):
+            if x.requires_grad:
+                ok, (cos, err) = _close_bf16(x.grad, r)
+                assert ok, f"{needs}: cosine {cos:.6f}, max |err| {err:.3e}"
+            else:
+                assert x.grad is None

@@ -57,7 +57,7 @@ def test_same_bvh_layout_as_jax(use_native, jax_ref):
     _, jbvh = jax_ref
     v, f = _sphere(2)
     jb = jbvh.build_bvh(v, f, use_native=use_native)
-    tb = tbvh.build_bvh(v, f, use_native=use_native)
+    tb = tbvh.build_bvh(v, f, device="cpu", use_native=use_native)
     for name in ("node_min", "node_max", "node_miss", "node_first", "node_count",
                  "tri_v0", "tri_e1", "tri_e2", "tri_id"):
         assert np.array_equal(np.asarray(getattr(jb, name)), getattr(tb, name).numpy()), name
@@ -72,7 +72,7 @@ def test_plain_caster_matches_pallas_and_bruteforce(jax_ref):
                                          block_r=128, block_t=128, interpret=True)
     brute = jbvh.cast_rays_bruteforce(jnp.asarray(v), jnp.asarray(f), jnp.asarray(o),
                                       jnp.asarray(d))
-    got = tbvh.cast_rays_chunked(tbvh.build_bvh(v, f), torch.from_numpy(o), torch.from_numpy(d))
+    got = tbvh.cast_rays_chunked(tbvh.build_bvh(v, f, device="cpu"), torch.from_numpy(o), torch.from_numpy(d))
     gh = got["hit"].numpy()
     for ref in (pallas, brute):
         hit = np.asarray(ref["hit"])
@@ -87,7 +87,7 @@ def test_plain_caster_matches_pallas_and_bruteforce(jax_ref):
 def test_t_max_and_miss(jax_ref):
     jnp, jbvh = jax_ref
     v, f = _sphere(1)
-    b = tbvh.build_bvh(v, f)
+    b = tbvh.build_bvh(v, f, device="cpu")
     o = torch.tensor([[0.0, 0.0, 3.0], [0.0, 0.0, 3.0]])
     d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
     out = tbvh.cast_rays_chunked(b, o, d)
@@ -105,14 +105,14 @@ def test_plane_tri_data_matches_jax(jax_ref):
     _, jbvh = jax_ref
     v, f = _sphere(2)
     rows_j, tid_j = jbvh._plane_tri_data(jbvh.build_bvh(v, f))
-    rows_t, tid_t = tbvh._plane_tri_data(tbvh.build_bvh(v, f))
+    rows_t, tid_t = tbvh._plane_tri_data(tbvh.build_bvh(v, f, device="cpu"))
     assert np.allclose(rows_t.numpy(), np.asarray(rows_j), atol=1e-6, rtol=1e-6)
     assert np.array_equal(tid_t.numpy(), np.asarray(tid_j).astype(np.int32))
 
 
 def test_large_mesh_raises_until_traversal_kernel():
     v, f = _sphere(0)
-    b = tbvh.build_bvh(v, f)
+    b = tbvh.build_bvh(v, f, device="cpu")
     big = b._replace(tri_v0=torch.zeros(tbvh.DENSE_CAST_MAX_TRIS + 1, 3))
     with pytest.raises(NotImplementedError):
         tbvh.cast_rays_chunked(big, torch.zeros(1, 3), torch.ones(1, 3))
@@ -121,7 +121,7 @@ def test_large_mesh_raises_until_traversal_kernel():
 def test_pairs_out_counts_every_pair_on_cpu():
     """The plain caster tests every (ray, triangle) pair and says so."""
     v, f = _sphere(1)
-    b = tbvh.build_bvh(v, f)
+    b = tbvh.build_bvh(v, f, device="cpu")
     o, d = (torch.from_numpy(x) for x in _rays(np.random.RandomState(1), 50))
     pairs = torch.full((1,), 7, dtype=torch.int64)
     out = tbvh.cast_rays_dense(b, o, d, pairs_out=pairs)
@@ -169,7 +169,7 @@ def test_tile_boxes_hold_every_live_triangle():
     """The kernel's cull skips a triangle tile only when its box misses the
     rays' box; the tile boxes must therefore hold every live triangle."""
     v, f = _sphere(3)
-    b = tbvh.build_bvh(v, f)
+    b = tbvh.build_bvh(v, f, device="cpu")
     rows, tid = tbvh._plane_tri_data(b)
     tid = tid.clone()
     tid[7] = -1  # a dead triangle takes no part

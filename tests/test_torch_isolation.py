@@ -3,9 +3,10 @@
 - A fresh interpreter imports every module of ``dreammat_tpu_torch``;
   afterwards no ``jax``, ``jaxlib``, ``flax``, ``optax`` or
   ``dreammat_tpu`` module may be in ``sys.modules``.
-- The entry points (system, datamodule, guidance, renderer) take
-  ``device``, default to CUDA, and raise without a GPU unless the caller
-  passes ``device="cpu"``.
+- The entry points (system, datamodule, guidance, renderer, ControlNet
+  trainer) and the public functions that place tensors (schedule, meshes,
+  BVH, FG LUT) take ``device``, default to CUDA, and raise without a GPU
+  unless the caller passes ``device="cpu"``.
 - No source file of the port calls PyTorch's fused attention.
 """
 
@@ -81,6 +82,38 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
     assert build(device="cpu").device.type == "cpu"
+
+
+def _default_device_calls(tmp_path):
+    from dreammat_tpu_torch.models import mesh
+    from dreammat_tpu_torch.models.diffusion import scheduler
+    from dreammat_tpu_torch.ops import bvh, envmap
+
+    obj = tmp_path / "tri.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nf 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
+    v, f = mesh.icosphere_arrays(0)
+    return {
+        "controlnet_trainer": lambda **kw: dreammat_tpu_torch.find("controlnet-trainer")(
+            {"model_size": "tiny"}, **kw),
+        "make_schedule": lambda **kw: scheduler.make_schedule(**kw),
+        "make_icosphere": lambda **kw: mesh.make_icosphere(0, **kw),
+        "mesh_from_numpy": lambda **kw: mesh.Mesh.from_numpy(v, f, **kw),
+        "load_mesh": lambda **kw: mesh.load_mesh(str(obj), **kw),
+        "build_bvh": lambda **kw: bvh.build_bvh(v, f, **kw),
+        "compute_fg_lut": lambda **kw: envmap.compute_fg_lut(res=4, n_samples=8, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["controlnet_trainer", "make_schedule", "make_icosphere",
+                                  "mesh_from_numpy", "load_mesh", "build_bvh",
+                                  "compute_fg_lut"])
+def test_functions_default_to_cuda(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    call = _default_device_calls(tmp_path)[name]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu") is not None
 
 
 def test_no_fused_attention_call():

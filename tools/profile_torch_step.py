@@ -1,12 +1,16 @@
 """Where the time of one train step of the PyTorch/CUDA port goes.
 
     python3 tools/profile_torch_step.py [--views 2] [--warmup 2] [--steps 3]
+    python3 tools/profile_torch_step.py --controlnet [--warmup 2] [--steps 3]
 
-Sets up the main path of ``chip_smoke.py`` (its ``main_config``:
-``configs/dreammat.yaml``, tables regime, SD2.1 width, random bf16
-weights, level-6 icosphere), runs
-``--warmup`` train steps, then traces ``--steps`` more with
-``torch.profiler`` (CPU and CUDA activities). Prints the device time by
+Sets up one of the two paths of ``chip_smoke.py``: DreamMat material
+generation (its ``main_config``: ``configs/dreammat.yaml``, tables regime,
+SD2.1 width, random bf16 weights, level-6 icosphere), or with
+``--controlnet`` ControlNet training (``ControlNetTrainer`` at the defaults
+of ``configs/controlnet_train.yaml``: SD2.1 width, resolution 256, random
+weights, one batch of ``train_batch_size`` (32) random images and
+conditions made with numpy from seed 0). Runs ``--warmup`` train steps, then traces ``--steps``
+more with ``torch.profiler`` (CPU and CUDA activities). Prints the device time by
 kernel class and the top kernels, the device's busy share of the traced
 window, and the host-clock step times; with ``--trace`` also writes the
 Chrome trace (tens of MB) to ``<out>/trace.json``. Needs a CUDA card.
@@ -21,6 +25,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -28,7 +33,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # first matching substring of a kernel's name decides its class
 CLASSES = [
     ("kernel A (flash_attn_fwd)", ("flash_fwd_kernel",)),
+    ("kernel C (flash_attn_bwd_dq)", ("flash_bwd_dq_kernel",)),
+    ("kernel D (flash_attn_bwd_dkv)", ("flash_bwd_dkv_kernel",)),
     ("kernel B (ray_cast)", ("ray_cast_kernel",)),
+    ("host<->device copy", ("memcpy htod", "memcpy dtoh")),
     ("cuDNN layout transform", ("nchwtonhwc", "nhwctonchw")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm", "winograd")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -47,6 +55,46 @@ def classify(name: str) -> str:
     return "elementwise/other"
 
 
+def setup_dreammat(args):
+    """(run(n): n more train steps, host-clock step seconds)."""
+    import dreammat_tpu_torch
+    from chip_smoke import main_config
+
+    cfg = main_config(args.views)
+    find = dreammat_tpu_torch.find
+    system = find(cfg.system_type)(cfg.system)
+    dm = find(cfg.data_type)(cfg.data, system.renderer, system.material)
+    dm.setup()
+    trial = os.path.join(args.out, "trial")
+
+    def run(n):
+        system.fit(dm, max_steps=system.global_step + n, seed=0, trial_dir=trial, log_every=n)
+
+    return run, system.step_seconds
+
+
+def setup_controlnet(args):
+    import dreammat_tpu_torch
+
+    trainer = dreammat_tpu_torch.find("controlnet-trainer")({}, device="cuda")
+    trainer.init_params()
+    trainer.make_optimizer()
+    res, n = trainer.cfg.resolution, trainer.cfg.train_batch_size
+    rng = np.random.default_rng(0)
+    batch = {"target": rng.random((n, res, res, 3), dtype=np.float32),
+             "condition": rng.random((n, res, res, 22), dtype=np.float32),
+             "prompts": ["a ceramic vase with a glossy glaze"] * n}
+
+    def run(n):
+        for _ in range(n):
+            t0 = time.time()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            trainer.step_seconds.append(time.time() - t0)
+
+    return run, trainer.step_seconds
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--views", type=int, default=2)
@@ -54,6 +102,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="outputs/profile_torch_step")
     ap.add_argument("--trace", action="store_true", help="write the Chrome trace")
+    ap.add_argument("--controlnet", action="store_true",
+                    help="profile a ControlNet training step instead of a DreamMat one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -62,26 +112,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import dreammat_tpu_torch
-    from chip_smoke import main_config
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    cfg = main_config(args.views)
-    find = dreammat_tpu_torch.find
-    system = find(cfg.system_type)(cfg.system)
-    dm = find(cfg.data_type)(cfg.data, system.renderer, system.material)
-    dm.setup()
-    trial = os.path.join(args.out, "trial")
-    system.fit(dm, max_steps=args.warmup, seed=0, trial_dir=trial, log_every=args.warmup)
+    run, step_seconds = (setup_controlnet if args.controlnet else setup_dreammat)(args)
+    run(args.warmup)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.time()
     with torch.profiler.profile(activities=acts) as prof:
-        system.fit(dm, max_steps=args.warmup + args.steps, seed=0, trial_dir=trial,
-                   log_every=args.steps)
+        run(args.steps)
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
     if args.trace:
@@ -89,7 +130,10 @@ def main() -> int:
 
     by_class, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (Optimizer.step#...) mirror their kernels' span
+        # on the device and would count those kernels twice
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             us = e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
             by_class[classify(e.name)] += us
             by_name[e.name][0] += us
@@ -100,7 +144,7 @@ def main() -> int:
           f"device busy {dev_ms:.1f} ms ({dev_ms / steps:.1f} ms/step, "
           f"{100.0 * dev_ms / wall_ms:.1f}% of the window, idle {100.0 - 100.0 * dev_ms / wall_ms:.1f}%)")
     print("step seconds (host clock after synchronize): "
-          + ", ".join(f"{s:.4f}" for s in system.step_seconds))
+          + ", ".join(f"{s:.4f}" for s in step_seconds))
     for label, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {label:28s} {us / 1e3 / steps:9.3f} ms/step  {100.0 * us / 1e3 / dev_ms:5.1f}%")
     print("top kernels (ms/step, launches/step):")
