@@ -9,18 +9,24 @@ any error:
 
 1. The card (name and power limit from ``nvidia-smi``) and the versions.
 2. Build every CUDA kernel of ``dreammat_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print ptxas's register report.
+   source, all started together), print ptxas's register report, and check
+   in ``cuobjdump -sass`` that kernels A and D hold ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads) and no ``HMMA`` (mma.sync).
 3. Kernel A (flash-attention forward) against ``attention_plain`` at every
    attention shape of the SD2.1 UNet and ControlNet (B = 3 CFG replicas,
    bf16): max and mean error of O, max error of the log-sum-exp, the
-   kernel's time, the plain version's, the bound, and
-   ``torch.nn.functional.scaled_dot_product_attention``'s as a yardstick.
+   kernel's time (CUDA events over many launches; device time from a
+   CUDA-graph replay of 20 launches; host microseconds per launch), the
+   plain version's, the bound, and
+   ``torch.nn.functional.scaled_dot_product_attention``'s, timed the same
+   ways, as a yardstick.
 4. Kernels C and D (flash-attention backward, dq and dk/dv) against
    ``attention_backward_plain`` at every attention shape of ControlNet
    training (SD2.1 width, 32^2 latents, the training batch) and at B=3,
    N=M=4096: max and mean error and cosine of dq, dk, dv, each kernel's
-   time, the plain version's, the bounds, and the autograd backward of
-   ``scaled_dot_product_attention`` as a yardstick; then autograd through
+   times as above, the plain version's, the bounds, and the autograd
+   backward of ``scaled_dot_product_attention`` as a yardstick (its graph
+   time is a graph of forward and backward less one of the forward); then autograd through
    ``attention`` against the plain forward and backward.
 5. Kernel B (dense ray caster) against ``cast_rays_plain`` on one 512^2
    G-buffer view and one visibility-bake batch of the level-6 icosphere.
@@ -114,6 +120,89 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call from a CUDA graph of ``n`` calls,
+    replayed ``replays`` times between CUDA events: no host work per launch."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * replays)
+    del g
+    return ms
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call: a host clock over ``n`` calls issued
+    without a synchronize (the launch queue does not fill at these counts)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def sdpa_grad_graph_ms(qt, kt, vt, dot, need) -> float:
+    """Device ms of SDPA's autograd backward with respect to the inputs
+    flagged in ``need`` (q, k, v): a graph of forward and backward, less a
+    graph of the forward alone (autograd's backward runs on the stream of
+    its forward, so the two are captured together)."""
+    import torch.nn.functional as F
+
+    xs = [x.detach().requires_grad_(n) for x, n in zip((qt, kt, vt), need)]
+    wrt = [x for x in xs if x.requires_grad]
+
+    def fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(*xs), wrt, dot)
+
+    with torch.no_grad():
+        fwd = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    return graph_ms(fwd_bwd) - fwd
+
+
+# kernel -> (library, symbol substring) of the kernels that must use wgmma
+# (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
+SM90_KERNELS = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_sm90_kernel"),
+                "flash_attn_bwd_dkv": ("flash_attn_bwd", "flash_bwd_dkv_sm90_kernel")}
+
+
+def check_sass() -> dict:
+    from dreammat_tpu_torch.ops import kernels
+
+    found = {}
+    for label, (lib, key) in SM90_KERNELS.items():
+        ops = kernels.sass_opcodes(kernels.sass(lib))
+        fns = [f for f in ops if key in f]
+        if len(fns) != 1:
+            raise AssertionError(f"{key}: {len(fns)} functions in the SASS of {lib}")
+        got = ops[fns[0]]
+        if not {"HGMMA", "UTMALDG"} <= got or "HMMA" in got:
+            raise AssertionError(f"{key}: SASS opcodes {sorted(got)} lack HGMMA/UTMALDG or "
+                                 "hold HMMA")
+        found[label] = sorted(o for o in got if o in ("HGMMA", "UTMALDG", "HMMA", "SYNCS"))
+        log(f"sass {key}: {', '.join(found[label])} (no HMMA)")
+    return found
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -158,19 +247,25 @@ def phase_attention(gen: torch.Generator) -> dict:
                                  f"mean {mean_err:.3e} lse {lse_err:.3e}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         iters = 50 if N * M < 1 << 22 else 20
-        ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v), iters)
+        kern = lambda: attn.flash_attention_fwd(q, k, v)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        ms = cuda_ms(kern, iters)
         plain_ms = cuda_ms(lambda: attn._plain_with_lse(q, k, v), 3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
+        lib_ms = cuda_ms(sdpa, iters)
+        g_ms, lib_g_ms = graph_ms(kern), graph_ms(sdpa)
+        h_us, lib_h_us = host_us(kern), host_us(sdpa)
         flops = 4.0 * B * H * N * M * D
         nbytes = 2.0 * B * H * D * (2 * N + 2 * M) + 4.0 * B * H * N
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         rows.append(dict(N=N, M=M, H=H, max_err=max_err, mean_err=mean_err, lse_err=lse_err,
-                         ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms, by=by))
+                         ms=ms, graph_ms=g_ms, host_us=h_us, plain_ms=plain_ms, lib_ms=lib_ms,
+                         lib_graph_ms=lib_g_ms, lib_host_us=lib_h_us, bound_ms=bound_ms, by=by))
         log(f"attention B={B} N={N:5d} M={M:5d} H={H:2d}: max|err| {max_err:.3e} "
-            f"mean {mean_err:.3e} lse {lse_err:.3e} | kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"mean {mean_err:.3e} lse {lse_err:.3e} | kernel {ms:.4f} ms (graph {g_ms:.4f}, "
+            f"host {h_us:.1f} us), sdpa {lib_ms:.4f} ms (graph {lib_g_ms:.4f}, host "
+            f"{lib_h_us:.1f} us), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+            f"{flops / g_ms / 1e9:.1f} TFLOP/s in the graph")
         del q, k, v, out, lse, ref, ref_lse, err
     return {"rows": rows}
 
@@ -271,8 +366,11 @@ def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
                                      f"{errs[name]}")
         del ref
         iters = 20 if B * H * N * M >= 1 << 27 else 50
-        dq_ms = cuda_ms(lambda: attn.flash_attention_bwd_dq(q, k, v, do, lse, delta), iters)
-        dkv_ms = cuda_ms(lambda: attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta), iters)
+        dq_fn = lambda: attn.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        dkv_fn = lambda: attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        dq_ms, dkv_ms = cuda_ms(dq_fn, iters), cuda_ms(dkv_fn, iters)
+        dq_g, dkv_g = graph_ms(dq_fn), graph_ms(dkv_fn)
+        dq_h, dkv_h = host_us(dq_fn), host_us(dkv_fn)
         plain_ms = cuda_ms(lambda: attn.attention_backward_plain(q, k, v, out, lse, do), 3)
         # yardstick: autograd backward of SDPA (its forward done once, outside
         # the timing), for dq alone and for dk, dv
@@ -284,7 +382,10 @@ def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
             wrt = [x for x in xs if x.requires_grad]
             lib[label] = cuda_ms(lambda: torch.autograd.grad(o_lib, wrt, dot, retain_graph=True),
                                  iters)
+            lib[label + "_host"] = host_us(
+                lambda: torch.autograd.grad(o_lib, wrt, dot, retain_graph=True))
             del o_lib
+            lib[label + "_graph"] = sdpa_grad_graph_ms(qt, kt, vt, dot, need)
         io_q = 2.0 * B * H * D * N
         io_kv = 2.0 * B * H * D * M
         stats = 8.0 * B * H * N
@@ -296,17 +397,22 @@ def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
             bounds[label] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
                              flops)
         rows.append(dict(B=B, N=N, M=M, H=H, errs=errs, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                         dq_graph_ms=dq_g, dkv_graph_ms=dkv_g, dq_host_us=dq_h, dkv_host_us=dkv_h,
                          plain_ms=plain_ms, lib_dq_ms=lib["dq"], lib_dkv_ms=lib["dkv"],
+                         lib_dq_graph_ms=lib["dq_graph"], lib_dkv_graph_ms=lib["dkv_graph"],
+                         lib_dq_host_us=lib["dq_host"], lib_dkv_host_us=lib["dkv_host"],
                          dq_bound_ms=bounds["dq"][0], dq_by=bounds["dq"][1],
                          dkv_bound_ms=bounds["dkv"][0], dkv_by=bounds["dkv"][1]))
         log(f"attention bwd B={B:2d} N={N:5d} M={M:5d} H={H:2d}: "
             + ", ".join(f"{n} max {e['max']:.2e} mean {e['mean']:.2e} cos {e['cos']:.6f}"
                         for n, e in errs.items())
-            + f" | dq {dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}, "
-            f"{bounds['dq'][2] / dq_ms / 1e9:.1f} TFLOP/s, sdpa {lib['dq']:.4f}), "
-            f"dk/dv {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}, "
-            f"{bounds['dkv'][2] / dkv_ms / 1e9:.1f} TFLOP/s, sdpa {lib['dkv']:.4f}), "
-            f"plain {plain_ms:.4f} ms")
+            + f" | dq {dq_ms:.4f} ms (graph {dq_g:.4f}, host {dq_h:.1f} us; bound "
+            f"{bounds['dq'][0]:.4f} {bounds['dq'][1]}, {bounds['dq'][2] / dq_g / 1e9:.1f} "
+            f"TFLOP/s; sdpa {lib['dq']:.4f}, graph {lib['dq_graph']:.4f}, host "
+            f"{lib['dq_host']:.1f} us), dk/dv {dkv_ms:.4f} ms (graph {dkv_g:.4f}, host "
+            f"{dkv_h:.1f} us; bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}, "
+            f"{bounds['dkv'][2] / dkv_g / 1e9:.1f} TFLOP/s; sdpa {lib['dkv']:.4f}, graph "
+            f"{lib['dkv_graph']:.4f}, host {lib['dkv_host']:.1f} us), plain {plain_ms:.4f} ms")
         del q, k, v, do, out, lse, delta, dq, dk, dv
 
     # autograd through attention() against the plain forward and backward
@@ -569,6 +675,7 @@ def main() -> int:
 
     t_all = time.time()
     phase_build(args.out)
+    sass = check_sass()
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_res = phase_attention(gen)
     import yaml
@@ -601,7 +708,9 @@ def main() -> int:
                               "controlnet_training": cn_counts["flash_attn_fwd"]},
          "max_abs_err": max(r["max_err"] for r in attn_res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-         "bound_by": a["by"], "library_ms": a["lib_ms"],
+         "bound_by": a["by"], "library_ms": a["lib_ms"], "graph_ms": a["graph_ms"],
+         "host_us": a["host_us"], "library_graph_ms": a["lib_graph_ms"],
+         "library_host_us": a["lib_host_us"], "sass": sass["flash_attn_fwd"],
          "work": f"B={ATTN_B} N={a['N']} M={a['M']} H={a['H']} D={ATTN_D} bf16"},
         {"name": "flash_attn_bwd_dq", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -609,7 +718,9 @@ def main() -> int:
          "launches": cn_counts["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for r in bwd_res["rows"]),
          "ms": c["dq_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dq_bound_ms"],
-         "bound_by": c["dq_by"], "library_ms": c["lib_dq_ms"],
+         "bound_by": c["dq_by"], "library_ms": c["lib_dq_ms"], "graph_ms": c["dq_graph_ms"],
+         "host_us": c["dq_host_us"], "library_graph_ms": c["lib_dq_graph_ms"],
+         "library_host_us": c["lib_dq_host_us"],
          "work": c_work + "; plain_ms computes dq, dk and dv; library: autograd of SDPA wrt q"},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -618,7 +729,9 @@ def main() -> int:
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for r in bwd_res["rows"]),
          "ms": c["dkv_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dkv_bound_ms"],
-         "bound_by": c["dkv_by"], "library_ms": c["lib_dkv_ms"],
+         "bound_by": c["dkv_by"], "library_ms": c["lib_dkv_ms"], "graph_ms": c["dkv_graph_ms"],
+         "host_us": c["dkv_host_us"], "library_graph_ms": c["lib_dkv_graph_ms"],
+         "library_host_us": c["lib_dkv_host_us"], "sass": sass["flash_attn_bwd_dkv"],
          "work": c_work + "; plain_ms computes dq, dk and dv; library: autograd of SDPA wrt k, v"},
         {"name": "ray_cast", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/ray_cast.cu",
@@ -631,7 +744,7 @@ def main() -> int:
                  f"after the tile cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
-        json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res,
+        json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res, "card": card},
                   f, indent=1)
     log(f"total {time.time() - t_all:.1f}s")

@@ -25,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from dreammat_tpu_torch.ops import kernels
+
 _ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
     + [ctypes.c_float, ctypes.c_void_p]
@@ -37,6 +39,15 @@ _DKV_ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 18
     + [ctypes.c_float, ctypes.c_void_p]
 )
+
+
+_SCALE = 1.0 / math.sqrt(64)  # the kernels are built for D = 64
+
+
+def _stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index`` (also
+    inside a CUDA-graph capture, which runs on a side stream)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -85,30 +96,33 @@ def _plain_bwd(q, k, v, do, lse, delta):
 
 
 def _layout_ok(t: torch.Tensor) -> bool:
-    """Unit-stride head dim, 8-element-aligned strides, 16-byte-aligned base."""
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+    """Unit-stride head dim, 8-element (16-byte) strides and a 16-byte-aligned
+    base: what the kernels' TMA tensor maps and vector stores need."""
+    sb, sn, sh, sd = t.stride()
+    return sd == 1 and not (sb % 8 or sn % 8 or sh % 8) and t.data_ptr() % 16 == 0
 
 
 def _check_cuda_inputs(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+    """Every check that guards the kernels' correctness, in one pass."""
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or v.dim() != 4:
         raise ValueError("flash_attention_fwd expects q/k/v of rank 4 [B,N,H,D]")
-    B, N, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
-        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    B, N, H, D = qs
+    if ks != v.shape or ks[0] != B or ks[2] != H or ks[3] != D:
+        raise ValueError(f"k/v shape {tuple(ks)} does not match q {tuple(qs)}")
     if D != 64:
         raise ValueError(f"the CUDA attention kernel is built for D=64 only, got D={D}")
-    if N < 1 or k.shape[1] < 1:
+    if N < 1 or ks[1] < 1:
         raise ValueError("empty sequence")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
-        if t.device != q.device:
-            raise ValueError("q, k and v must be on the same device")
-        if not _layout_ok(t):
-            raise ValueError(
-                f"{name} must have a unit-stride head dim, 8-element-aligned strides "
-                "and a 16-byte-aligned base pointer"
-            )
+    bf16 = torch.bfloat16
+    if q.dtype != bf16 or k.dtype != bf16 or v.dtype != bf16:
+        raise TypeError(f"q, k and v must be bfloat16 on CUDA, got {q.dtype}, {k.dtype}, {v.dtype}")
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev:
+        raise ValueError("q, k and v must be on the same device")
+    if not (_layout_ok(q) and _layout_ok(k) and _layout_ok(v)):
+        raise ValueError("q, k and v must have a unit-stride head dim, 8-element-aligned "
+                         "strides and a 16-byte-aligned base pointer")
     if B * H > 65535:
         raise ValueError("B*H exceeds the grid limit of 65535")
 
@@ -117,27 +131,31 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _launch_error(what: str, rc: int) -> RuntimeError:
+    if rc < 0:
+        return RuntimeError(f"{what}: TMA tensor-map encoding failed (CUresult {-rc}; "
+                            "-1000: libcuda has no cuTensorMapEncodeTiled)")
+    return RuntimeError(f"{what} kernel launch failed (cudaError {rc})")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(out [B,N,H,D], lse [B*H,N] f32). CUDA tensors launch kernel A,
     CPU tensors run the plain version."""
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return _plain_with_lse(q, k, v)
     _check_cuda_inputs(q, k, v)
-    from dreammat_tpu_torch.ops import kernels
-
     fn = kernels.function("flash_attn_fwd", "flash_attn_fwd_bf16_d64", _ARGTYPES)
-    B, N, H, D = q.shape
-    M = k.shape[1]
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    B, N, H, _ = q.shape
+    out = torch.empty_like(q)  # q's strides where q is dense, else contiguous
     lse = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    qs, ks, vs, os = q.stride(), k.stride(), v.stride(), out.stride()
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, N, M, H, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        1.0 / math.sqrt(D), stream,
+        B, N, k.shape[1], H, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        os[0], os[1], os[2], _SCALE, _stream(q.get_device()),
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel launch failed (cudaError {rc})")
+        raise _launch_error("flash_attn_fwd", rc)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -167,22 +185,20 @@ def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
 def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     """dq [B,N,H,D] in q's dtype. CUDA tensors launch kernel C, CPU tensors
     run the plain version."""
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return _plain_bwd(q, k, v, do, lse, delta)[0].to(q.dtype)
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    from dreammat_tpu_torch.ops import kernels
-
     fn = kernels.function("flash_attn_bwd", "flash_attn_bwd_dq_bf16_d64", _DQ_ARGTYPES)
-    B, N, H, D = q.shape
+    B, N, H, _ = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, N, k.shape[1], H,
         *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+        _SCALE, _stream(q.get_device()),
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd dq kernel launch failed (cudaError {rc})")
+        raise _launch_error("flash_attn_bwd dq", rc)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -193,24 +209,22 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B,M,H,D] in k's and v's dtype. CUDA tensors launch kernel D,
     CPU tensors run the plain version."""
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         _, dk, dv = _plain_bwd(q, k, v, do, lse, delta)
         return dk.to(k.dtype), dv.to(v.dtype)
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    from dreammat_tpu_torch.ops import kernels
-
     fn = kernels.function("flash_attn_bwd", "flash_attn_bwd_dkv_bf16_d64", _DKV_ARGTYPES)
-    B, N, H, D = q.shape
+    B, N, H, _ = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, k.shape[1], H,
         *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk), *_strides(dv),
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+        _SCALE, _stream(q.get_device()),
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd dk/dv kernel launch failed (cudaError {rc})")
+        raise _launch_error("flash_attn_bwd dk/dv", rc)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -248,6 +262,6 @@ class _FlashAttention(torch.autograd.Function):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """q [B,N,H,D], k/v [B,M,H,D] -> [B,N,H,D]. Non-causal, no mask."""
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return attention_plain(q, k, v)
     return _FlashAttention.apply(q, k, v)

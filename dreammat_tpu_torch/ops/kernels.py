@@ -4,18 +4,23 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, into
 ``build/dreammat_tpu_torch/`` at the repository root (git-ignored), keyed by
-a hash of the source: an edited kernel is rebuilt, an unchanged one is
-reused. ``build()`` starts one ``nvcc`` per missing library, all at once.
+a hash of the source and the shared headers (``csrc/*.cuh``): an edited
+kernel is rebuilt, an unchanged one is reused. ``build()`` starts one
+``nvcc`` per missing library, all at once. ``sass_opcodes`` reads what was
+compiled (``cuobjdump -sass``), so a caller can check which instructions a
+kernel uses.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Set
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -37,10 +42,11 @@ _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, SOURCES[name])] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -116,3 +122,31 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _FUNCS[symbol] = fn
     return fn
+
+
+def sass_opcodes(text: str) -> Dict[str, Set[str]]:
+    """The opcodes of each function in ``cuobjdump -sass`` output: function
+    name (mangled, as cuobjdump prints it) -> set of opcodes without their
+    modifiers (``HGMMA.64x128x16.F32.BF16`` counts as ``HGMMA``)."""
+    out: Dict[str, Set[str]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), set())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and current is not None:
+            current.add(m.group(1))
+    return out
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name`` (building it if
+    needed); cuobjdump is taken from nvcc's directory."""
+    from dreammat_tpu_torch.utils.hw import find_nvcc
+
+    build([name])
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", _lib_path(name)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout

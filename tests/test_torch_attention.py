@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_SHAPES, TRAIN_ATTN_SHAPES
 from dreammat_tpu_torch.ops import attention as tattn
+from dreammat_tpu_torch.ops import kernels
 
 SHAPES = [
     (1, 256, 256, 2, 64),
@@ -218,3 +220,135 @@ def test_autograd_launches_only_the_needed_kernels(cuda):
                 assert ok, f"{needs}: cosine {cos:.6f}, max |err| {err:.3e}"
             else:
                 assert x.grad is None
+
+
+@pytest.mark.parametrize("bad", ["do_shape", "do_fp32", "do_stride", "lse_shape", "delta_fp16",
+                                 "lse_strided"])
+def test_cuda_backward_input_checks(bad):
+    q = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    v, do = k.clone(), q.clone()
+    lse, delta = torch.zeros(2, 16), torch.zeros(2, 16)
+    if bad == "do_shape":
+        do = do[:, :8]
+    elif bad == "do_fp32":
+        do = do.float()
+    elif bad == "do_stride":
+        do = torch.zeros(1, 16, 2, 128, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "lse_shape":
+        lse = torch.zeros(2, 8)
+    elif bad == "delta_fp16":
+        delta = delta.half()
+    else:
+        lse = torch.zeros(16, 2).t()
+    tattn._check_bwd_inputs(q, k, v, q.clone(), torch.zeros(2, 16), torch.zeros(2, 16))
+    with pytest.raises((ValueError, TypeError)):
+        tattn._check_bwd_inputs(q, k, v, do, lse, delta)
+
+
+def test_layout_check_takes_strided_views_of_fused_projections():
+    # q, k, v sliced out of one [B, N, 3, H, D] tensor, as a fused projection gives them
+    qkv = torch.zeros(2, 16, 3, 4, 64, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    tattn._check_cuda_inputs(q, k, v)
+    with pytest.raises(ValueError):  # 16-byte strides are what the tensor maps need
+        tattn._check_cuda_inputs(torch.zeros(2, 16, 4, 68, dtype=torch.bfloat16)[..., :64], k, v)
+
+
+def test_launch_errors_name_their_cause():
+    assert "cudaError 700" in str(tattn._launch_error("flash_attn_fwd", 700))
+    msg = str(tattn._launch_error("flash_attn_fwd", -1))
+    assert "tensor-map" in msg and "CUresult 1" in msg
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_sm90_kernelE14CUtensorMap_st
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 UTMALDG.4D [UR8], [UR4] ;          /* 0x00000008040075b4 */
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0030*/              @UP0 BRA 0x30 ;
+\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvPK13__nv_bfloat16
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+"""
+
+
+def test_sass_opcodes_per_function():
+    ops = kernels.sass_opcodes(_SASS)
+    fwd, dq = sorted(ops, key=lambda n: "dq" in n)
+    assert "flash_fwd_sm90_kernel" in fwd and "flash_bwd_dq_kernel" in dq
+    assert {"HGMMA", "UTMALDG", "LDC", "BRA"} == ops[fwd]
+    assert {"LDSM", "HMMA"} == ops[dq]
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// kernel")
+    (tmp_path / "common.cuh").write_text("// v1")
+    monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
+    monkeypatch.setitem(kernels.SOURCES, "probe", "k.cu")
+    before = kernels._lib_path("probe")
+    (tmp_path / "common.cuh").write_text("// v2")
+    assert kernels._lib_path("probe") != before
+
+
+def _check_fwd(q, k, v):
+    out, lse = tattn.flash_attention_fwd(q, k, v)
+    ref, ref_lse = tattn._plain_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out.float()).all()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, (err.max().item(),
+                                                                     err.mean().item())
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+def _check_bwd(q, k, v, do):
+    out, lse = tattn.flash_attention_fwd(q, k, v)
+    got = tattn.flash_attention_bwd(q, k, v, out, lse, do)
+    ref = tattn.attention_backward_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, ref):
+        ok, (cos, err) = _close_bf16(a, b)
+        assert ok, f"d{name}: cosine {cos:.6f}, max |err| {err:.3e}"
+
+
+# every attention shape of both main paths (N, M, H), at a small batch
+PATH_SHAPES = sorted(set(ATTN_SHAPES) | set(TRAIN_ATTN_SHAPES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nmh", PATH_SHAPES)
+def test_kernels_at_every_path_shape_on_cuda(cuda, nmh):
+    N, M, H = nmh
+    g = torch.Generator(device=cuda).manual_seed(N + M + H)
+    q, k, v, do = (torch.randn(2, n, H, 64, generator=g, device=cuda).to(torch.bfloat16)
+                   for n in (N, M, M, N))
+    _check_fwd(q, k, v)
+    _check_bwd(q, k, v, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nm", [(1024, 1024), (256, 77), (64, 64), (16, 77), (300, 200)])
+def test_kernels_on_fused_projection_views_on_cuda(cuda, nm):
+    # q, k, v (and dO) sliced out of one [B, N, 3, H, D] tensor: non-contiguous strides
+    N, M = nm
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(2, max(N, M), 3, 5, 64, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :N, 0], qkv[:, :M, 1], qkv[:, :M, 2]
+    do = torch.randn(2, N, 2, 5, 64, generator=g, device=cuda).to(torch.bfloat16)[:, :, 1]
+    _check_fwd(q, k, v)
+    _check_bwd(q, k, v, do)
+
+
+@pytest.mark.cuda
+def test_kernels_at_640_batch_heads_on_cuda(cuda):
+    # the training mid block: B = 32, H = 20, 16 tokens, B*H = 640 on the grid's y
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(32, n, 20, 64, generator=g, device=cuda).to(torch.bfloat16)
+                   for n in (16, 77, 77, 16))
+    _check_fwd(q, k, v)
+    _check_bwd(q, k, v, do)
+    _check_fwd(q, q, q)
