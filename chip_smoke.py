@@ -10,7 +10,7 @@ any error:
 1. The card (name and power limit from ``nvidia-smi``) and the versions.
 2. Build every CUDA kernel of ``dreammat_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together), print ptxas's register report, and check
-   in ``cuobjdump -sass`` that kernels A and D hold ``HGMMA`` (wgmma) and
+   in ``cuobjdump -sass`` that kernels A, C and D hold ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA loads) and no ``HMMA`` (mma.sync).
 3. Kernel A (flash-attention forward) against ``attention_plain`` at every
    attention shape of the SD2.1 UNet and ControlNet (B = 3 CFG replicas,
@@ -29,7 +29,12 @@ any error:
    time is a graph of forward and backward less one of the forward); then autograd through
    ``attention`` against the plain forward and backward.
 5. Kernel B (dense ray caster) against ``cast_rays_plain`` on one 512^2
-   G-buffer view and one visibility-bake batch of the level-6 icosphere.
+   G-buffer view and one visibility-bake batch of the level-6 icosphere in
+   the bake's own ray order (``bake_rays``): hit, t, u, v and face must
+   agree bit for bit. The bound counts the pairs the kernel tested (and,
+   as a yardstick fixed across versions, all R x T pairs) at
+   ``CAST_OPS_PER_PAIR`` rounded fp32 operations each, over the card's
+   instruction rate (132 SMs x 128 lanes x ``clocks.max.sm``).
 6. Main path 1: DreamMat material generation (``configs/dreammat.yaml``,
    tables regime, SD2.1 width, random weights) through the user's entry
    points: system, datamodule setup (prerender), ``fit`` for a few steps.
@@ -68,12 +73,18 @@ import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# fp32 operations per ray-triangle pair of the plane/edge test: six
-# 3-term dots (5 each) + 3 adds of the constants, the divide, two FMAs
-# for u and v, and the seven compares and selects of the running minimum
-CAST_OPS_PER_PAIR = 35
+# fp32 lanes of the H100 SXM: 132 SMs x 128; each issues one rounded fp32
+# operation per clock (kernel B rounds every operation, so none is an FMA
+# and the FMA-doubled 67 TFLOP/s does not apply)
+FP32_LANES = 132 * 128
+# rounded fp32 operations that every pair kernel B tests executes before
+# its pre-division reject (ray_cast.cu; 15 FMUL, FADD and FSETP in the SASS
+# of its loop): A = o.N + d0 (3 mul, 3 add), B = d.N (3 mul, 2 add),
+# |B| > 1e-12 and A != 0 (2), RN(cut |B|) and the compare with |A| (2).
+# Pairs that pass go on to the division, u and v (about 33 more); the
+# bound counts the floor that every tested pair needs.
+CAST_OPS_PER_PAIR = 15
 
 # (N, M, H) of every D=64 attention in the SD2.1 UNet and ControlNet at a
 # 64^2 latent: self-attention at 64^2, 32^2, 16^2 tokens and the 8^2 mid
@@ -182,6 +193,7 @@ def sdpa_grad_graph_ms(qt, kt, vt, dot, need) -> float:
 # kernel -> (library, symbol substring) of the kernels that must use wgmma
 # (HGMMA) and TMA loads (UTMALDG) and no mma.sync (HMMA)
 SM90_KERNELS = {"flash_attn_fwd": ("flash_attn_fwd", "flash_fwd_sm90_kernel"),
+                "flash_attn_bwd_dq": ("flash_attn_bwd", "flash_bwd_dq_sm90_kernel"),
                 "flash_attn_bwd_dkv": ("flash_attn_bwd", "flash_bwd_dkv_sm90_kernel")}
 
 
@@ -201,6 +213,58 @@ def check_sass() -> dict:
         found[label] = sorted(o for o in got if o in ("HGMMA", "UTMALDG", "HMMA", "SYNCS"))
         log(f"sass {key}: {', '.join(found[label])} (no HMMA)")
     return found
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ray_cast_cases(mesh, n_views: int = 4):
+    """The two casts of the DreamMat prerender, as (label, origins,
+    directions): one 512^2 G-buffer view of the first fixed camera, and the
+    first visibility-bake batch (``bake_vertex_visibility``'s point chunk at
+    16^2 directions) in the bake's own ray order."""
+    from dreammat_tpu_torch.data.cameras import make_fixed_cameras
+    from dreammat_tpu_torch.models.renderer import _views_rays
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    dev = mesh.v_pos.device
+    cam = make_fixed_cameras(n_views, seed=0)
+    f32 = lambda x: torch.as_tensor(np.asarray(x[:1], np.float32), device=dev)
+    _, _, ro, rd = _views_rays(f32(cam.elevation_deg), f32(cam.azimuth_deg),
+                               f32(cam.camera_distances), f32(cam.fovy_deg), 512, 512)
+    dirs = vis_lib._grid_dirs(16, dev)
+    n_pts = (1 << 16) * 64 // dirs.shape[0]  # bake_vertex_visibility's point chunk
+    bake_o, bake_d, _ = vis_lib.bake_rays(mesh.v_pos[:n_pts], mesh.v_nrm[:n_pts], dirs, 1e-3)
+    return [("gbuffer view 512^2", ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()),
+            (f"visibility bake batch {n_pts}x256", bake_o.contiguous(), bake_d.contiguous())]
+
+
+def cast_disagreement(got: dict, ref: dict) -> dict:
+    """Where two casts differ: hit flips, max |dt| where both hit, and rays
+    whose face, u or v differ (kernel B claims 0 of each)."""
+    flips = int((got["hit"] != ref["hit"]).sum())
+    both = got["hit"] & ref["hit"]
+    t_err = (got["t"][both] - ref["t"][both]).abs().max().item() if bool(both.any()) else 0.0
+    return {"flips": flips, "t_err": t_err,
+            "face_diff": int((got["face"] != ref["face"]).sum()),
+            "uv_diff": int(((got["u"] != ref["u"]) | (got["v"] != ref["v"])).sum())}
+
+
+def cast_bounds(pairs: float, R: int, T: int, clock_hz: float) -> dict:
+    """Kernel B's bound over the pairs it tested and over all R x T pairs
+    (ms), each the larger of the operations over the fp32 instruction rate
+    and the bytes (rays in, hits out, triangles) over the memory rate."""
+    rate = FP32_LANES * clock_hz
+    t_bytes = (R * (24 + 16) + T * 13 * 4) / PEAK_BYTES
+    t_ops = pairs * CAST_OPS_PER_PAIR / rate
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_all_pairs_ms": max(float(R) * T * CAST_OPS_PER_PAIR / rate, t_bytes) * 1e3}
 
 
 def card_line() -> str:
@@ -270,61 +334,41 @@ def phase_attention(gen: torch.Generator) -> dict:
     return {"rows": rows}
 
 
-def phase_ray_cast(gen: torch.Generator) -> dict:
-    from dreammat_tpu_torch.data.cameras import make_fixed_cameras
+def phase_ray_cast() -> dict:
     from dreammat_tpu_torch.models.mesh import make_icosphere
-    from dreammat_tpu_torch.models.renderer import _views_rays
     from dreammat_tpu_torch.ops import bvh as bvh_lib
-    from dreammat_tpu_torch.ops import visibility as vis_lib
 
     mesh = make_icosphere(6, device="cuda")
     bvh = bvh_lib.build_bvh(mesh.v_pos.cpu().numpy(), mesh.t_pos_idx.cpu().numpy(), device="cuda")
     tri = bvh_lib._plane_tri_data(bvh)
     T = tri[0].shape[1]
-    cam = make_fixed_cameras(4, seed=0)
-    f32 = lambda x: torch.as_tensor(np.asarray(x[:1], np.float32), device="cuda")
-    _, _, ro, rd = _views_rays(f32(cam.elevation_deg), f32(cam.azimuth_deg),
-                               f32(cam.camera_distances), f32(cam.fovy_deg), 512, 512)
-    dirs = vis_lib._grid_dirs(16, "cuda")
-    n_pts = (1 << 16) * 64 // dirs.shape[0]  # bake_vertex_visibility's point chunk
-    vp, vn = mesh.v_pos[:n_pts], mesh.v_nrm[:n_pts]
-    bake_o = ((vp + vn * 1e-3)[:, None] + dirs[None] * 1e-3).reshape(-1, 3)
-    bake_d = dirs[None].expand(n_pts, -1, 3).reshape(-1, 3).contiguous()
-    cases = {
-        "gbuffer view 512^2": (ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()),
-        f"visibility bake batch {n_pts}x256": (bake_o.contiguous(), bake_d),
-    }
+    clock = sm_clock_hz()
     rows = []
-    for label, (o, d) in cases.items():
+    for label, o, d in ray_cast_cases(mesh):
         R = o.shape[0]
-        # the pairs the kernel's tile cull keeps, counted by the kernel
+        # the pairs the kernel's cull keeps, counted by the kernel
         pairs_t = torch.zeros(1, dtype=torch.int64, device="cuda")
         got = bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri, pairs_out=pairs_t)
         ref = bvh_lib.cast_rays_plain(bvh, o, d, chunk=2048, tri_data=tri)
         torch.cuda.synchronize()
-        flips = int((got["hit"] != ref["hit"]).sum())
-        both = got["hit"] & ref["hit"]
-        t_err = (got["t"][both] - ref["t"][both]).abs().max().item() if bool(both.any()) else 0.0
-        if flips > max(1, int(1e-5 * R)) or t_err > 1e-4:
-            raise AssertionError(f"ray cast {label}: {flips} hit flips, max |dt| {t_err:.3e}")
+        diff = cast_disagreement(got, ref)
+        if any(diff.values()):
+            raise AssertionError(f"ray cast {label}: kernel and plain version differ: {diff}")
         ms = cuda_ms(lambda: bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri), 3)
         plain_ms = cuda_ms(lambda: bvh_lib.cast_rays_plain(bvh, o, d, chunk=2048, tri_data=tri), 1,
                            warmup=0)
         pairs = float(pairs_t.item())
-        t_ops = pairs * CAST_OPS_PER_PAIR / PEAK_FP32_FLOPS
-        t_bytes = (R * (24 + 16) + T * 13 * 4) / PEAK_BYTES
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        by = "operations" if t_ops >= t_bytes else "bytes"
-        # the same bound over every pair, independent of the cull
-        all_ms = max(float(R) * T * CAST_OPS_PER_PAIR / PEAK_FP32_FLOPS, t_bytes) * 1e3
-        rows.append(dict(label=label, R=R, T=T, pairs=pairs, flips=flips, t_err=t_err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms, by=by, bound_all_pairs_ms=all_ms,
+        bounds = cast_bounds(pairs, R, T, clock)
+        rows.append(dict(label=label, R=R, T=T, pairs=pairs, **diff, ms=ms, plain_ms=plain_ms,
+                         **bounds, sm_clock_mhz=clock / 1e6,
                          hit_frac=float(got["hit"].float().mean())))
-        log(f"ray cast {label}: R={R} T={T} hits {rows[-1]['hit_frac']:.3f}, flips {flips}, "
-            f"max|dt| {t_err:.3e} | pairs the kernel tested {pairs:.4g} "
-            f"({100.0 * pairs / (float(R) * T):.1f}% of R x T) | kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}; over all R x T pairs "
-            f"{all_ms:.3f} ms), {pairs / ms / 1e6:.1f} Gpairs/s")
+        log(f"ray cast {label}: R={R} T={T} hits {rows[-1]['hit_frac']:.3f}, flips "
+            f"{diff['flips']}, max|dt| {diff['t_err']:.3e}, face and u, v equal | pairs the "
+            f"kernel tested {pairs:.4g} ({100.0 * pairs / (float(R) * T):.2f}% of R x T) | kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms | {pairs / ms / 1e6:.1f} Gpairs/s tested, "
+            f"{float(R) * T / ms / 1e6:.1f} Gpairs/s of R x T | bound {bounds['bound_ms']:.4f} ms "
+            f"({bounds['by']}, {CAST_OPS_PER_PAIR} ops per tested pair at {clock / 1e6:.0f} MHz), "
+            f"over all R x T pairs {bounds['bound_all_pairs_ms']:.3f} ms")
         del got, ref
     return {"rows": rows}
 
@@ -683,7 +727,7 @@ def main() -> int:
     with open(TRAIN_CONFIG) as f:
         batch = yaml.safe_load(f)["train_batch_size"]
     bwd_res = phase_attention_bwd(gen, batch)
-    cast_res = phase_ray_cast(gen)
+    cast_res = phase_ray_cast()
     counts = {"flash_attn_fwd": None, "ray_cast": None}
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
     main_res = cn_res = None
@@ -720,7 +764,7 @@ def main() -> int:
          "ms": c["dq_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dq_bound_ms"],
          "bound_by": c["dq_by"], "library_ms": c["lib_dq_ms"], "graph_ms": c["dq_graph_ms"],
          "host_us": c["dq_host_us"], "library_graph_ms": c["lib_dq_graph_ms"],
-         "library_host_us": c["lib_dq_host_us"],
+         "library_host_us": c["lib_dq_host_us"], "sass": sass["flash_attn_bwd_dq"],
          "work": c_work + "; plain_ms computes dq, dk and dv; library: autograd of SDPA wrt q"},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -738,10 +782,11 @@ def main() -> int:
          "replaces": "dreammat_tpu/ops/bvh.py:579",
          "launches": counts["ray_cast"],
          "max_abs_err": max(r["t_err"] for r in cast_res["rows"]),
+         "sm_clock_mhz": b["sm_clock_mhz"],
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
          "bound_by": b["by"], "library_ms": None,
          "work": f"R={b['R']} rays x T={b['T']} triangles fp32, {b['pairs']:.4g} pairs "
-                 f"after the tile cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
+                 f"tested after the cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,

@@ -5,36 +5,56 @@
 // hit of R rays against T triangles given as plane/edge equations
 // (_plane_tri_data: rows N | d0 | g_u | c_u | g_v | c_v, [12, T]):
 //
-//   t = -(o.N + d0) / (d.N),  u = (o.g_u + c_u) + t d.g_u,
-//   v = (o.g_v + c_v) + t d.g_v,
-//   valid = |d.N| > 1e-12, t > 1e-6, u >= 0, v >= 0, u + v <= 1, id >= 0,
+//   A = o.N + d0,  B = d.N,  t = -A / B,
+//   u = (o.g_u + c_u) + t d.g_u,  v = (o.g_v + c_v) + t d.g_v,
+//   valid = |B| > 1e-12, t > 1e-6, u >= 0, v >= 0, u + v <= 1, id >= 0,
 //           t < the running best (which starts at t_max).
 //
-// What bounds it on the H100: ~35 fp32 operations per (ray, triangle) pair
-// against 32 bytes in and 16 bytes out per ray, so the fp32 pipes, not the
-// memory, bound it (no tensor cores: TF32 flips silhouette hits, see
-// bvh.py:618-622).
+// The kernel returns bit for bit what the plain PyTorch version
+// (ops/bvh.py cast_rays_plain) returns: every operation is rounded in the
+// plain version's order ((x0 r0 + x1 r1) + x2 r2, then the constant), with
+// no FMA contraction (__fmul_rn, __fadd_rn) and IEEE division, and the
+// triangles are visited in leaf order with a strict "<", so the first of
+// equal t wins, as torch.argmin does. No tensor cores: TF32 flips
+// silhouette hits (bvh.py:618-622).
 //
-// What the design does about that: one thread per ray, 128 rays per block.
-// The block stages 256-triangle tiles (13 floats each, structure-of-arrays)
-// in shared memory, and every thread walks the tile with all lanes reading
-// the same triangle (a broadcast, no bank conflicts). The running (t, face,
-// u, v) minimum lives in registers; the strict "<" keeps the first triangle
-// in leaf order on ties, as the TPU kernel's first-lane tie-break does. All
-// math is fp32, rounded after every operation (no FMA contraction) and with
-// IEEE division, so the kernel returns bit for bit what the plain PyTorch
-// version (ops/bvh.py cast_rays_plain) returns.
+// What bounds it on the H100: the fp32 pipes. A tested pair costs 15
+// rounded fp32 operations before the division can be skipped (A: 6,
+// B: 5, |B| > 1e-12 and A != 0: 2, the threshold product and its compare:
+// 2; none is an FMA; the SASS of the loop holds these 15 beside 7 integer
+// and select instructions, one LDS.128 and the branch), against 24 bytes
+// in and 16 out per ray. chip_smoke.py divides the tested pairs times 15
+// by the card's instruction rate (132 SMs x 128 lanes x the SM clock).
 //
-// Pairs that cannot hit are skipped a tile at a time, as the TPU kernel's
-// cull does (bvh.py:603-609): the block's rays, clipped to the scene box,
-// span a box, and a triangle tile (256 triangles in BVH leaf order, so
-// spatially compact) whose box misses it is never loaded. Both boxes are
-// padded by CULL_PAD, so rounding can only keep a tile, never drop one: the
-// cull changes no result. Rays are not sorted; camera rays in raster order
-// already come in compact strips. When the caller passes a counter, the
-// kernel adds to it the (ray, triangle) pairs it tested (live rays of the
-// block times triangles of each kept tile): the work this run's data needs,
-// from the cull itself, for the bound a benchmark reports.
+// What the design does about that (version 2):
+//   - fewer pairs. Each ray tests the boxes of 256-triangle tiles (in
+//     leaf order, so spatially compact) and then of their 32-triangle
+//     sub-tiles against its segment (0, best t), a slab test;
+//     a warp stages and tests a sub-tile only when one of its rays may hit
+//     it. The segment ends at the running best t, so tiles beyond a ray's
+//     hit drop out as hits are found. The boxes are padded by CULL_PAD, far
+//     above the rounding of the slab test and of the hit point that the
+//     plain test accepts (each about 1e-7 of the coordinates and lengths
+//     involved, of order 1 to 10 for the unit-scale meshes and t_max = 10
+//     the system casts with), so the cull may keep a tile that no ray
+//     needs but never drops one that a ray needs: it changes no result.
+//     The visibility bake orders its rays to suit (vertices in
+//     Morton order, direction-major: ops/visibility.py), so a warp's rays
+//     start close together and run parallel.
+//   - fewer instructions per pair. A warp stages its sub-tile in shared
+//     memory by cp.async as four float4 per triangle ((N, d0), (g_u, c_u),
+//     (g_v, c_v), id), read back as broadcasts; a pair is rejected before
+//     the division where the plain test would reject it anyway (the two
+//     rules and their proof are next to passes_early); the rest of the
+//     test runs as predicates, not as a branch per test.
+//   - one ray per thread, 32 per warp, and warps are independent: no block
+//     barrier, each warp walks the tiles with its own votes. (Two rays per
+//     thread, so that one read of a triangle served two pairs, was slower
+//     on every case: the warp's cull covers twice the rays, and a thread's
+//     rays ran the division one after the other; PERF.md, PR 4.)
+// When the caller passes a counter, the kernel adds to it the (ray,
+// triangle) pairs it tested (live rays of a warp times triangles of each
+// sub-tile it staged): the work this run's data needs after the cull.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC  (see dreammat_tpu_torch/ops/kernels.py)
@@ -44,157 +64,183 @@
 
 namespace {
 
-constexpr int RAYS_PER_BLOCK = 128;
-constexpr int NUM_WARPS = RAYS_PER_BLOCK / 32;
-constexpr int TRI_TILE = 256;
+constexpr int WARPS = 4;  // one ray per thread: 128 rays per block, 32 per warp
+constexpr int TILE = 256;  // triangles per outer box
+constexpr int SUB = 32;    // triangles per inner box, staged by a warp
 constexpr float CULL_PAD = 1e-4f;
-
-// Rounded, uncontracted fp32 arithmetic in the plain version's order
-// ((x0 r0 + x1 r1) + x2 r2, then the constant): an FMA changes the last bit
-// of u or v, and a ray through the shared edge of two triangles can then
-// fall through both and report the back face.
-__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+constexpr float T_MIN = 1e-6f;
+constexpr float B_MIN = 1e-12f;
+constexpr float CUT_SLACK = 1.00000095367431640625f;  // 1 + 2^-20, exact in fp32
 
 __device__ __forceinline__ float dot3(float x, float y, float z, float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), __fmul_rn(z, c));
 }
 
-__global__ void __launch_bounds__(RAYS_PER_BLOCK)
+// Whether a pair must go on to the division, given A, B and
+// cut = RN(tb (1 + 2^-20)), where tb is the ray's running best t: the
+// plain test rejects every pair that this rejects.
+//
+//   1. t = -A / B > 1e-6 needs A != 0 and A, B of opposite signs: with
+//      A = +-0 the quotient is +-0; with equal signs it is <= 0 (B != 0,
+//      since |B| > 1e-12 is tested first).
+//   2. t < tb fails once |A| >= RN(cut |B|). Both products are of normal
+//      numbers (tb > 1e-6 while a hit is still possible, |B| > 1e-12, so
+//      cut |B| > 1e-18), so each rounds down by at most a factor
+//      (1 - 2^-24): |A| / |B| >= tb (1 + 2^-20)(1 - 2^-24)^2 > tb, and
+//      t = RN(|A| / |B|) >= RN(tb) = tb, as RN is monotone and tb is a
+//      float. (A product that overflows to inf only weakens the rule.
+//      While tb <= 1e-6 no pair can pass t > 1e-6 and t < tb at once, so
+//      any rejection is right.)
+//
+// A NaN A or B is rejected too, as the plain test rejects it (t is NaN).
+// No short-circuit: the four tests are predicates, without branches.
+__device__ __forceinline__ bool passes_early(float A, float B, float cut) {
+  const bool opposite = (int)(__float_as_uint(A) ^ __float_as_uint(B)) < 0;
+  return (fabsf(B) > B_MIN) & opposite & (A != 0.f) & (fabsf(A) < __fmul_rn(cut, fabsf(B)));
+}
+
+struct Ray {
+  float o[3], d[3];
+  float inv[3], o_inv[3];  // 1 / d per axis (|d| clamped to 1e-12) and o / d, for the slab test
+  float tb, ub, vb, cut;   // running best t, its u and v; cut = RN(tb (1 + 2^-20))
+  int fb;
+  bool live;
+};
+
+// Whether the ray's segment (0, tb) meets the box [lo, hi] (padded): a
+// slab test whose rounding is far below the padding. A dead ray meets
+// nothing.
+__device__ __forceinline__ bool meets(const Ray& r, const float4& lo, const float4& hi) {
+  float t0 = 0.f, t1 = r.tb;
+  const float l[3] = {lo.x, lo.y, lo.z}, h[3] = {hi.x, hi.y, hi.z};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float s0 = fmaf(l[a], r.inv[a], -r.o_inv[a]);
+    const float s1 = fmaf(h[a], r.inv[a], -r.o_inv[a]);
+    t0 = fmaxf(t0, fminf(s0, s1));
+    t1 = fminf(t1, fmaxf(s0, s1));
+  }
+  return r.live && t0 <= t1;
+}
+
+// 16-byte asynchronous copy from global to shared memory (no registers)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// the box pair (min, max) at `box`, padded by CULL_PAD
+__device__ __forceinline__ void load_box(const float4* box, float4& lo, float4& hi) {
+  lo = __ldg(box);
+  hi = __ldg(box + 1);
+  lo.x -= CULL_PAD; lo.y -= CULL_PAD; lo.z -= CULL_PAD;
+  hi.x += CULL_PAD; hi.y += CULL_PAD; hi.z += CULL_PAD;
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
 ray_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-                const float* __restrict__ rows, const int* __restrict__ tid,
-                const float* __restrict__ tile_box, const float* __restrict__ scene_box,
-                int R, int T, float t_max,
+                const float4* __restrict__ tris, const float4* __restrict__ tile_box,
+                const float4* __restrict__ sub_box, int R, int T, float t_max,
                 float* __restrict__ t_out, int* __restrict__ f_out,
                 float* __restrict__ u_out, float* __restrict__ v_out,
                 unsigned long long* __restrict__ pairs) {
-  __shared__ float s_rows[12][TRI_TILE];
-  __shared__ int s_tid[TRI_TILE];
-  __shared__ float s_red[NUM_WARPS][6];
-  __shared__ float s_blk[6];  // the block's ray box: -min x,y,z then max x,y,z
+  __shared__ float4 s_tri[WARPS][SUB * 4];
 
-  const int r = blockIdx.x * RAYS_PER_BLOCK + threadIdx.x;
-  const bool live = r < R;
-  float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
-  if (live) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long base = ((long long)blockIdx.x * WARPS + warp) * 32;
+  if (base >= R) return;  // the whole warp: warps share no barrier
+  const int live_rays = (int)min(32LL, R - base);
+
+  const long long idx = base + lane;
+  Ray r;
+  r.live = idx < R;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      o[a] = ro[3 * r + a];
-      d[a] = rd[3 * r + a];
-    }
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = r.live ? ro[3 * idx + a] : 0.f;
+    r.d[a] = r.live ? rd[3 * idx + a] : 0.f;
+    r.inv[a] = 1.f / (fabsf(r.d[a]) < 1e-12f ? 1e-12f : r.d[a]);
+    r.o_inv[a] = r.o[a] * r.inv[a];
   }
+  r.tb = t_max;
+  r.cut = __fmul_rn(t_max, CUT_SLACK);
+  r.ub = r.vb = 0.f;
+  r.fb = -1;
+  const float ox = r.o[0], oy = r.o[1], oz = r.o[2], dx = r.d[0], dy = r.d[1], dz = r.d[2];
 
-  // this ray's segment (t in [1e-6, t_max]) clipped to the padded scene box
-  const float neg_inf = __int_as_float(0xff800000);
-  float box[6];  // -min, max: both reduce with fmaxf
-#pragma unroll
-  for (int k = 0; k < 6; ++k) box[k] = neg_inf;
-  if (live) {
-    float enter = 1e-6f, leave = t_max;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float inv = 1.f / (fabsf(d[a]) < 1e-12f ? 1e-12f : d[a]);
-      const float s0 = (scene_box[a] - CULL_PAD - o[a]) * inv;
-      const float s1 = (scene_box[3 + a] + CULL_PAD - o[a]) * inv;
-      enter = fmaxf(enter, fminf(s0, s1));
-      leave = fminf(leave, fmaxf(s0, s1));
-    }
-    if (leave >= enter) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float p0 = o[a] + enter * d[a], p1 = o[a] + leave * d[a];
-        box[a] = -(fminf(p0, p1) - CULL_PAD);
-        box[3 + a] = fmaxf(p0, p1) + CULL_PAD;
+  float4* st = s_tri[warp];
+  unsigned long long tested = 0;
+  const int n_tiles = (T + TILE - 1) / TILE;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    float4 lo, hi;
+    load_box(tile_box + 2 * tile, lo, hi);
+    if (!__any_sync(0xffffffffu, meets(r, lo, hi))) continue;
+
+    for (int s0 = tile * TILE; s0 < min(T, (tile + 1) * TILE); s0 += SUB) {
+      load_box(sub_box + 2 * (s0 / SUB), lo, hi);
+      if (!__any_sync(0xffffffffu, meets(r, lo, hi))) continue;
+
+      const int n = min(SUB, T - s0);
+      __syncwarp();  // every lane is done with the previous sub-tile
+      for (int j = lane; j < 4 * n; j += 32) cp_async16(st + j, tris + 4LL * s0 + j);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      tested += (unsigned long long)live_rays * n;
+
+#pragma unroll 2
+      for (int c = 0; c < n; ++c) {
+        const float4 P = st[4 * c];
+        const float A = __fadd_rn(dot3(ox, oy, oz, P.x, P.y, P.z), P.w);
+        const float B = dot3(dx, dy, dz, P.x, P.y, P.z);
+        if (!passes_early(A, B, r.cut)) continue;
+        // the rest of the plain test as predicates, without a branch per test
+        const float4 GU = st[4 * c + 1], GV = st[4 * c + 2];
+        const int id = __float_as_int(st[4 * c + 3].x);
+        const float t = __fdiv_rn(-A, B);
+        const float u = __fadd_rn(__fadd_rn(dot3(ox, oy, oz, GU.x, GU.y, GU.z), GU.w),
+                                  __fmul_rn(t, dot3(dx, dy, dz, GU.x, GU.y, GU.z)));
+        const float v = __fadd_rn(__fadd_rn(dot3(ox, oy, oz, GV.x, GV.y, GV.z), GV.w),
+                                  __fmul_rn(t, dot3(dx, dy, dz, GV.x, GV.y, GV.z)));
+        const bool hit = (t > T_MIN) & (t < r.tb) & (u >= 0.f) & (v >= 0.f) &
+                         (__fadd_rn(u, v) <= 1.f) & (id >= 0);
+        r.tb = hit ? t : r.tb;
+        r.cut = hit ? __fmul_rn(t, CUT_SLACK) : r.cut;
+        r.ub = hit ? u : r.ub;
+        r.vb = hit ? v : r.vb;
+        r.fb = hit ? id : r.fb;
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    float x = box[k];
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
-    if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5][k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    float x = s_red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < NUM_WARPS; ++w) x = fmaxf(x, s_red[w][threadIdx.x]);
-    s_blk[threadIdx.x] = x;
-  }
-  __syncthreads();
-  const float bmin[3] = {-s_blk[0], -s_blk[1], -s_blk[2]};
-  const float bmax[3] = {s_blk[3], s_blk[4], s_blk[5]};
-
-  const float ox = o[0], oy = o[1], oz = o[2], dx = d[0], dy = d[1], dz = d[2];
-  float tb = t_max, ub = 0.f, vb = 0.f;
-  int fb = -1;
-  const unsigned long long live_rays = min(RAYS_PER_BLOCK, R - blockIdx.x * RAYS_PER_BLOCK);
-  unsigned long long tested = 0;
-
-  for (int t0 = 0, tile = 0; t0 < T; t0 += TRI_TILE, ++tile) {
-    const float* box_t = tile_box + 6 * tile;
-    // the same answer in every thread of the block: the skip is uniform
-    if (!(bmin[0] <= box_t[3] && box_t[0] <= bmax[0] && bmin[1] <= box_t[4] &&
-          box_t[1] <= bmax[1] && bmin[2] <= box_t[5] && box_t[2] <= bmax[2]))
-      continue;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < 12 * TRI_TILE; i += RAYS_PER_BLOCK) {
-      const int row = i / TRI_TILE;
-      const int c = i % TRI_TILE;
-      s_rows[row][c] = (t0 + c < T) ? rows[(long long)row * T + t0 + c] : 0.f;
-    }
-    for (int c = threadIdx.x; c < TRI_TILE; c += RAYS_PER_BLOCK)
-      s_tid[c] = (t0 + c < T) ? tid[t0 + c] : -1;
-    __syncthreads();
-
-    const int n = min(TRI_TILE, T - t0);
-    tested += live_rays * n;
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      const float A = fadd(dot3(ox, oy, oz, s_rows[0][c], s_rows[1][c], s_rows[2][c]),
-                           s_rows[3][c]);
-      const float B = dot3(dx, dy, dz, s_rows[0][c], s_rows[1][c], s_rows[2][c]);
-      if (!(fabsf(B) > 1e-12f)) continue;
-      const float t = -A / B;
-      if (!(t > 1e-6f) || !(t < tb)) continue;
-      const float gux = s_rows[4][c], guy = s_rows[5][c], guz = s_rows[6][c];
-      const float u = fadd(fadd(dot3(ox, oy, oz, gux, guy, guz), s_rows[7][c]),
-                           __fmul_rn(t, dot3(dx, dy, dz, gux, guy, guz)));
-      if (!(u >= 0.f)) continue;
-      const float gvx = s_rows[8][c], gvy = s_rows[9][c], gvz = s_rows[10][c];
-      const float v = fadd(fadd(dot3(ox, oy, oz, gvx, gvy, gvz), s_rows[11][c]),
-                           __fmul_rn(t, dot3(dx, dy, dz, gvx, gvy, gvz)));
-      if (!(v >= 0.f) || !(fadd(u, v) <= 1.f) || s_tid[c] < 0) continue;
-      tb = t;
-      ub = u;
-      vb = v;
-      fb = s_tid[c];
-    }
-  }
-  if (pairs != nullptr && threadIdx.x == 0 && tested > 0) atomicAdd(pairs, tested);
-  if (live) {
-    t_out[r] = tb;
-    f_out[r] = fb;
-    u_out[r] = ub;
-    v_out[r] = vb;
+  if (pairs != nullptr && lane == 0 && tested > 0) atomicAdd(pairs, tested);
+  if (r.live) {
+    t_out[idx] = r.tb;
+    f_out[idx] = r.fb;
+    u_out[idx] = r.ub;
+    v_out[idx] = r.vb;
   }
 }
 
 }  // namespace
 
-// Triangles per tile: the wrapper builds tile_box [ceil(T / tile), 6] with it.
-extern "C" int ray_cast_tile_size() { return TRI_TILE; }
+// Triangles per outer and inner box: the wrapper builds tile_box
+// [ceil(T / tile), 2, 4] and sub_box [ceil(T / sub), 2, 4] with them.
+extern "C" int ray_cast_tile_size() { return TILE; }
+extern "C" int ray_cast_sub_size() { return SUB; }
 
-extern "C" int ray_cast_dense(const void* rays_o, const void* rays_d, const void* rows,
-                              const void* tid, const void* tile_box, const void* scene_box,
-                              int R, int T, float t_max, void* t_out, void* f_out, void* u_out,
-                              void* v_out, void* pairs, void* stream) {
-  const int blocks = (R + RAYS_PER_BLOCK - 1) / RAYS_PER_BLOCK;
-  ray_cast_kernel<<<blocks, RAYS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+// tris: [T, 4, 4] float, per triangle (N, d0), (g_u, c_u), (g_v, c_v),
+// (id as int bits, 0, 0, 0). Returns 0 or a cudaError_t.
+extern "C" int ray_cast_dense(const void* rays_o, const void* rays_d, const void* tris,
+                              const void* tile_box, const void* sub_box, int R, int T,
+                              float t_max, void* t_out, void* f_out, void* u_out, void* v_out,
+                              void* pairs, void* stream) {
+  const int blocks = (R + 32 * WARPS - 1) / (32 * WARPS);
+  ray_cast_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-      static_cast<const float*>(rows), static_cast<const int*>(tid),
-      static_cast<const float*>(tile_box), static_cast<const float*>(scene_box), R, T, t_max,
-      static_cast<float*>(t_out), static_cast<int*>(f_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<unsigned long long*>(pairs));
+      static_cast<const float4*>(tris), static_cast<const float4*>(tile_box),
+      static_cast<const float4*>(sub_box), R, T, t_max, static_cast<float*>(t_out),
+      static_cast<int*>(f_out), static_cast<float*>(u_out), static_cast<float*>(v_out),
+      static_cast<unsigned long long*>(pairs));
   return (int)cudaGetLastError();
 }

@@ -298,15 +298,32 @@ def cast_rays_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     return _finish(*(torch.cat(outs[k]) for k in ("t", "face", "u", "v")))
 
 
+# 1 + 2^-20: the slack of the pre-division reject's threshold (ray_cast.cu)
+CUT_SLACK = 1.0 + 2.0 ** -20
+
+
+def cast_reject_plain(A: torch.Tensor, B: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
+    """Kernel B's pre-division reject in plain fp32 PyTorch: True where a
+    pair with plane terms A = o.N + d0 and B = d.N may be skipped before
+    t = -A / B is formed, given the ray's running best t ``tb``: |B| <=
+    1e-12, or A = 0 or A, B of equal signs (then t <= 0), or not |A| <
+    RN(RN(tb (1 + 2^-20)) |B|) (then t >= tb, or t is NaN). The plain test
+    rejects every such pair; the proof is in ``csrc/ray_cast.cu``."""
+    A, B = A.float(), B.float()
+    cut = tb.float() * CUT_SLACK
+    opposite = torch.signbit(A) != torch.signbit(B)
+    return ~((B.abs() > 1e-12) & opposite & (A != 0) & (A.abs() < cut * B.abs()))
+
+
 _CAST_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 6
+    [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 6
 )
 
 
-def _tile_boxes(bvh: FlatBVH, tid: torch.Tensor, tile: int):
-    """Boxes of consecutive ``tile``-triangle groups in leaf order, [n, 6]
-    (min | max), and the scene box [6], for the kernel's cull. Padding and
-    degenerate triangles (id -1) take no part."""
+def _tile_boxes(bvh: FlatBVH, tid: torch.Tensor, tile: int) -> torch.Tensor:
+    """Boxes of consecutive ``tile``-triangle groups in leaf order, [n, 8]
+    (min x, y, z, 0, max x, y, z, 0: two float4 per box), for the kernel's
+    cull. Padding and degenerate triangles (id -1) take no part."""
     v0 = bvh.tri_v0
     corners = torch.stack([v0, v0 + bvh.tri_e1, v0 + bvh.tri_e2])       # [3,T,3]
     dead = (tid < 0)[:, None]
@@ -316,8 +333,15 @@ def _tile_boxes(bvh: FlatBVH, tid: torch.Tensor, tile: int):
     pad = (-lo.shape[0]) % tile
     lo = torch.cat([lo, inf[:1].expand(pad, 3)]).reshape(-1, tile, 3).amin(1)
     hi = torch.cat([hi, -inf[:1].expand(pad, 3)]).reshape(-1, tile, 3).amax(1)
-    scene = torch.cat([lo.amin(0), hi.amax(0)])
-    return torch.cat([lo, hi], dim=1).contiguous(), scene.contiguous()
+    zero = torch.zeros_like(lo[:, :1])
+    return torch.cat([lo, zero, hi, zero], dim=1).contiguous()
+
+
+def _packed_tris(rows: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
+    """[T, 16] float32, per triangle the four float4 the kernel reads:
+    (N, d0), (g_u, c_u), (g_v, c_v), (id as int32 bits, 0, 0, 0)."""
+    zeros = torch.zeros(rows.shape[1], 3, dtype=torch.float32, device=rows.device)
+    return torch.cat([rows.T, tid.view(torch.float32)[:, None], zeros], dim=1).contiguous()
 
 
 def cast_rays_dense(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
@@ -326,7 +350,7 @@ def cast_rays_dense(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     """First hit of every ray against every triangle. CUDA tensors launch
     kernel B; CPU tensors run ``cast_rays_plain``. ``pairs_out``, an int64
     [1] tensor on the rays' device, if given, has the (ray, triangle) pairs
-    tested added to it: those the kernel's tile cull keeps, or all R x T."""
+    tested added to it: those the kernel's cull keeps, or all R x T."""
     if pairs_out is not None and (pairs_out.dtype != torch.int64 or pairs_out.shape != (1,)
                                   or pairs_out.device != rays_o.device):
         raise ValueError("pairs_out must be an int64 [1] tensor on the rays' device")
@@ -351,7 +375,9 @@ def cast_rays_dense(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
 
     fn = kernels.function("ray_cast", "ray_cast_dense", _CAST_ARGTYPES)
     tile = kernels.function("ray_cast", "ray_cast_tile_size", [])()
-    boxes, scene = _tile_boxes(bvh, tid, tile)
+    sub = kernels.function("ray_cast", "ray_cast_sub_size", [])()
+    tris = _packed_tris(rows, tid)
+    boxes, sub_boxes = _tile_boxes(bvh, tid, tile), _tile_boxes(bvh, tid, sub)
     R, T = rays_o.shape[0], rows.shape[1]
     dev = rays_o.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
@@ -360,8 +386,8 @@ def cast_rays_dense(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     v = torch.empty(R, dtype=torch.float32, device=dev)
     if R == 0:
         return _finish(t, face, u, v)
-    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), rows.data_ptr(), tid.data_ptr(),
-            boxes.data_ptr(), scene.data_ptr(), R, T, float(t_max), t.data_ptr(),
+    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), tris.data_ptr(), boxes.data_ptr(),
+            sub_boxes.data_ptr(), R, T, float(t_max), t.data_ptr(),
             face.data_ptr(), u.data_ptr(), v.data_ptr(),
             None if pairs_out is None else pairs_out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -93,12 +93,42 @@ def _grid_dirs(N: int, device) -> torch.Tensor:
     return oct_uv_to_dir(torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1))
 
 
+def morton_order(points: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """The permutation that sorts ``points`` [n, 3] by the Morton code of
+    their positions, quantised to ``bits`` per axis over their box: nearby
+    points come out close together."""
+    lo = points.amin(0)
+    span = (points.amax(0) - lo).clamp_min(1e-12)
+    q = ((points - lo) / span * ((1 << bits) - 1)).round().long()
+    code = torch.zeros_like(q[:, 0])
+    for b in range(bits):
+        for a in range(3):
+            code |= ((q[:, a] >> b) & 1) << (3 * b + a)
+    return torch.argsort(code, stable=True)
+
+
+def bake_rays(v_pos: torch.Tensor, v_nrm: torch.Tensor, dirs: torch.Tensor, eps: float):
+    """The rays of one bake chunk in the order the caster culls best:
+    vertices sorted by ``morton_order``, direction-major (for each
+    direction, every vertex), so that consecutive rays start close
+    together and run parallel. Returns (origins [D*c, 3], directions
+    [D*c, 3], order [c]); ray (j, i) is vertex order[i]'s ray along
+    dirs[j], computed by the same expression as in vertex-major order."""
+    order = morton_order(v_pos)
+    vp, vn = v_pos[order], v_nrm[order]
+    c, n_dirs = vp.shape[0], dirs.shape[0]
+    origins = (vp + vn * eps)[None, :, :] + dirs[:, None, :] * eps
+    directions = dirs[:, None, :].expand(n_dirs, c, 3)
+    return origins.reshape(-1, 3), directions.reshape(-1, 3), order
+
+
 def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: torch.Tensor,
                            oct_res: int = 16, eps: float = 1e-3, chunk: int = 1 << 16,
                            supersample: int = 1) -> BakedVisibility:
     """Cast V x (oct_res*supersample)^2 rays once (origins pushed off the
     surface along the normal and the ray); each bin stores the fraction of
-    its sub-rays that escape."""
+    its sub-rays that escape. Each chunk's rays go to the caster in
+    ``bake_rays``' order and their hits are scattered back per vertex."""
     V = v_pos.shape[0]
     s = max(int(supersample), 1)
     N = oct_res * s
@@ -111,12 +141,11 @@ def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: tor
         vp = v_pos[i:i + point_chunk]
         vn = v_nrm[i:i + point_chunk]
         c = vp.shape[0]
-        origins = (vp + vn * eps)[:, None, :] + dirs[None, :, :] * eps
-        out = bvh_lib.cast_rays_chunked(
-            bvh, origins.reshape(-1, 3), dirs[None].expand(c, N2, 3).reshape(-1, 3),
-            tri_data=tri_data,
-        )
-        vis = (~out["hit"]).float().reshape(c, oct_res, s, oct_res, s)
+        origins, directions, order = bake_rays(vp, vn, dirs, eps)
+        out = bvh_lib.cast_rays_chunked(bvh, origins, directions, tri_data=tri_data)
+        hit = torch.empty(c, N2, dtype=torch.bool, device=vp.device)
+        hit[order] = out["hit"].reshape(N2, c).T
+        vis = (~hit).float().reshape(c, oct_res, s, oct_res, s)
         tables.append(vis.mean(dim=(2, 4)).reshape(c, oct_res * oct_res).half())
     return BakedVisibility(table=torch.cat(tables), oct_res=oct_res)
 

@@ -270,7 +270,11 @@ _SASS = """
         /*0010*/              @!P0 UTMALDG.4D [UR8], [UR4] ;          /* 0x00000008040075b4 */
         /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0030*/              @UP0 BRA 0x30 ;
-\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvPK13__nv_bfloat16
+\t\tFunction : _ZN12_GLOBAL__N_13dqk24flash_bwd_dq_sm90_kernelE14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiixxxf
+        /*0000*/                   SYNCS.EXCH.64 URZ, [UR4], UR6 ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR12], R88 ;
+\t\tFunction : _ZN12_GLOBAL__N_17ampere_dq_kernelILi64EEEvPK13__nv_bfloat16
         /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
         /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
 """
@@ -278,10 +282,12 @@ _SASS = """
 
 def test_sass_opcodes_per_function():
     ops = kernels.sass_opcodes(_SASS)
-    fwd, dq = sorted(ops, key=lambda n: "dq" in n)
-    assert "flash_fwd_sm90_kernel" in fwd and "flash_bwd_dq_kernel" in dq
+    assert len(ops) == 3
+    fwd, dq, old = (next(n for n in ops if key in n)
+                    for key in ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "ampere"))
     assert {"HGMMA", "UTMALDG", "LDC", "BRA"} == ops[fwd]
-    assert {"LDSM", "HMMA"} == ops[dq]
+    assert {"SYNCS", "HGMMA"} == ops[dq]
+    assert {"LDSM", "HMMA"} == ops[old]
 
 
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
@@ -339,6 +345,20 @@ def test_kernels_on_fused_projection_views_on_cuda(cuda, nm):
     qkv = torch.randn(2, max(N, M), 3, 5, 64, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = qkv[:, :N, 0], qkv[:, :M, 1], qkv[:, :M, 2]
     do = torch.randn(2, N, 2, 5, 64, generator=g, device=cuda).to(torch.bfloat16)[:, :, 1]
+    _check_fwd(q, k, v)
+    _check_bwd(q, k, v, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nm", [(129, 65), (65, 2), (1, 130), (191, 1000), (4097, 77)])
+def test_kernels_at_ragged_lengths_on_cuda(cuda, nm):
+    # N and M off the 64- and 128-row tiles: zero-filled keys past M get
+    # p = 0, rows past N are not stored, a block's second consumer may idle
+    # (M >= 2: with one key, p = 1 and dq is 0 up to rounding)
+    N, M = nm
+    g = torch.Generator(device=cuda).manual_seed(N * 7 + M)
+    q, k, v, do = (torch.randn(2, n, 3, 64, generator=g, device=cuda).to(torch.bfloat16)
+                   for n in (N, M, M, N))
     _check_fwd(q, k, v)
     _check_bwd(q, k, v, do)
 

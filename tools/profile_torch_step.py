@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # first matching substring of a kernel's name decides its class
 CLASSES = [
     ("kernel A (flash_attn_fwd)", ("flash_fwd_sm90_kernel",)),
-    ("kernel C (flash_attn_bwd_dq)", ("flash_bwd_dq_kernel",)),
+    ("kernel C (flash_attn_bwd_dq)", ("flash_bwd_dq_sm90_kernel",)),
     ("kernel D (flash_attn_bwd_dkv)", ("flash_bwd_dkv_sm90_kernel",)),
     ("kernel B (ray_cast)", ("ray_cast_kernel",)),
     ("host<->device copy", ("memcpy htod", "memcpy dtoh")),
