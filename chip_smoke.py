@@ -4,8 +4,8 @@
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
-around it (``dreammat_tpu_torch``). Phases, each of which fails the run on
-any error:
+around it (``dreammat_tpu_torch``, ``launch_torch.py``). Phases, each of
+which fails the run on any error:
 
 1. The card (name and power limit from ``nvidia-smi``) and the versions.
 2. Build every CUDA kernel of ``dreammat_tpu_torch/csrc`` (one ``nvcc`` per
@@ -51,7 +51,30 @@ any error:
    dq, 23 dk/dv per step); the loss must be finite, the ControlNet must move
    and the frozen UNet must not; the diffusers export must load strictly
    into the guidance through ``controlnet_path``.
-8. A ``{"kernels": [...]}`` line, the card's line, and last
+8. Main path 3: DreamMat on a self-occluding mesh through the command
+   line, ``launch_torch.main(["--config", "configs/dreammat.yaml",
+   "--train", ...])`` in-process: a torus OBJ (R 0.7, r 0.28, 192 x 96
+   quads, 36,864 triangles) written to ``outputs/chip_smoke_launch/``, SD2.1
+   width, 512^2, random weights, 4 views, 5 skies, 3 steps with
+   ``hybrid_mc_every=2`` (steps 0 and 2 shade through the MC estimator),
+   2 test views, the 2048^2 export. The fast-path gate must have run
+   (self-occlusion, colour RMSE, grad-cos, decision and seconds printed);
+   kernel B must have launched in the gate, in the test views' G-buffers and
+   in the texel bake (its launches counted per stage), kernel A 46 times a
+   step and no backward kernel; the losses finite and the field moved; the
+   test PNGs (and their albedo, roughness and metallic RGBA PNGs), the gif,
+   ``model.obj``, ``model.mtl`` and the three JPEG maps present with their
+   signatures, and the OBJ's v / vt / vn / f counts those of the mesh and
+   its unwrap. Then kernel B against ``cast_rays_plain``, bit for bit, on
+   65,536 of the gate's shadow rays (its time on the whole batch) and on a
+   256^2 block of the texel bake; and 4096 pixels of view 0 shaded by the MC
+   estimator (``is_train=False``) with the baked, the per-pixel and (on 32
+   pixels: the CPU's plain caster is slow) the ray-traced visibility, on the
+   card and on the CPU, at least 99.9% of pixels within 1e-4; and the 4096
+   pixels with ray-traced visibility on the card, kernel B as the tracer
+   against the plain caster as the tracer, within 1e-6. Every stage's
+   seconds and the table and MC steps' peak memory are printed.
+9. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -370,7 +393,7 @@ def phase_ray_cast() -> dict:
             f"({bounds['by']}, {CAST_OPS_PER_PAIR} ops per tested pair at {clock / 1e6:.0f} MHz), "
             f"over all R x T pairs {bounds['bound_all_pairs_ms']:.3f} ms")
         del got, ref
-    return {"rows": rows}
+    return {"rows": rows, "clock": clock}
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -575,23 +598,28 @@ def phase_controlnet(steps: int, batch: int, seed: int, work_dir: str) -> dict:
             "step_s": step_s, "peak_gb": peak_gb, "losses": losses, "moved": moved}
 
 
-def main_config(views: int):
-    """``configs/dreammat.yaml`` as the smoke run drives it: random weights,
-    the level-6 icosphere, procedural skies, ``views`` fixed cameras, no
-    caches."""
-    from dreammat_tpu_torch.utils.config import load_config
-
-    return load_config("configs/dreammat.yaml", [
+def main_overrides(views: int, shape_init: str = "procedural:sphere", shape_params: str = "6"):
+    """The overrides of ``configs/dreammat.yaml`` as the smoke run drives
+    it: random weights, procedural skies, ``views`` fixed cameras, no
+    caches, and the mesh."""
+    return [
         "system.prompt_processor.prompt=a ceramic vase",
         "system.prompt_processor.use_cache=false",
-        "system.geometry.shape_init=procedural:sphere",
-        "system.geometry.shape_init_params=6",
+        f"system.geometry.shape_init={shape_init}",
+        f"system.geometry.shape_init_params={shape_params}",
         "system.guidance.cache_dir=null",
         "system.guidance.controlnet_path=null",
         "system.material.environment_texture=/nonexistent",
         f"data.fix_view_num={views}",
         "data.prerender_cache_dir=null",
-    ])
+    ]
+
+
+def main_config(views: int):
+    """``configs/dreammat.yaml`` on the level-6 icosphere (main path 1)."""
+    from dreammat_tpu_torch.utils.config import load_config
+
+    return load_config("configs/dreammat.yaml", main_overrides(views))
 
 
 def phase_main(steps: int, views: int, out_dir: str) -> dict:
@@ -695,6 +723,320 @@ def phase_main(steps: int, views: int, out_dir: str) -> dict:
             "prerender_s": dict(sec), "losses": losses}
 
 
+def check_file(path: str, magic: bytes, min_bytes: int, tail: bytes = b"") -> int:
+    """The file's size, after checking its signature, its end and its size."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(magic) or not data.endswith(tail) or len(data) < min_bytes:
+        raise AssertionError(f"{path}: {len(data)} bytes, starts {data[:8]!r}, ends {data[-2:]!r}")
+    return len(data)
+
+
+class StageLaunches:
+    """Kernel B's launches inside named calls: each wrapped function adds
+    the caster's launches made during the call to its stage."""
+
+    def __init__(self):
+        self.counts, self._undo = {}, []
+
+    def wrap(self, owner, name: str, stage: str):
+        from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+        fn = getattr(owner, name)
+        self.counts.setdefault(stage, 0)
+
+        def wrapper(*a, **k):
+            before = bvh_lib.cast_rays_dense.launches
+            try:
+                return fn(*a, **k)
+            finally:
+                self.counts[stage] += bvh_lib.cast_rays_dense.launches - before
+
+        setattr(owner, name, wrapper)
+        self._undo.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+
+
+def _cast_case(label, bvh, tri, o, d, clock, check_idx=None):
+    """Kernel B on the rays (o, d): its time, the pairs it tested, its
+    bound, and the plain caster on ``check_idx`` (all rays if None), which
+    must agree bit for bit."""
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    R, T = o.shape[0], tri[0].shape[1]
+    pairs_t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri, pairs_out=pairs_t)
+    ms = cuda_ms(lambda: bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri), 3)
+    sel = torch.arange(R, device="cuda") if check_idx is None else check_idx
+    os_, ds = o[sel].contiguous(), d[sel].contiguous()
+    t0 = time.time()
+    ref = bvh_lib.cast_rays_plain(bvh, os_, ds, chunk=2048, tri_data=tri)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    sub = {k: v[sel] for k, v in got.items()}
+    diff = cast_disagreement(sub, ref)
+    if any(diff.values()):
+        raise AssertionError(f"ray cast {label}: kernel and plain version differ: {diff}")
+    pairs = float(pairs_t.item())
+    bounds = cast_bounds(pairs, R, T, clock)
+    row = dict(label=label, R=R, T=T, checked=int(sel.shape[0]), pairs=pairs, **diff, ms=ms,
+               plain_ms_checked=plain_ms, **bounds, hit_frac=float(got["hit"].float().mean()))
+    log(f"ray cast {label}: R={R} T={T} hits {row['hit_frac']:.3f}; {row['checked']} rays "
+        f"bit for bit equal to the plain caster (plain {plain_ms:.1f} ms on them) | pairs tested "
+        f"{pairs:.4g} ({100.0 * pairs / (float(R) * T):.3f}% of R x T) | kernel {ms:.3f} ms | "
+        f"bound {bounds['bound_ms']:.4f} ms ({bounds['by']}), over all R x T "
+        f"{bounds['bound_all_pairs_ms']:.3f} ms")
+    return row
+
+
+def _shade_sources(system, dm, n_px: int, n_px_trace: int) -> dict:
+    """View 0's first ``n_px`` pixels shaded by the MC estimator
+    (is_train=False) with each visibility source, on the card and on the
+    CPU from the same inputs (the raytrace source on the CPU's plain caster
+    over ``n_px_trace`` pixels); max |colour difference| per source."""
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    mat, ren = system.material, system.renderer
+    gb = dm.data.gbuffers[0]
+    cpu_mat = dreammat_tpu_torch.find(system.cfg.material_type)(system.cfg.material, device="cpu")
+    with torch.no_grad():
+        feats = system.geometry.apply(system.field, gb.fg_pos[:n_px])
+        _, a, m, r = mat.features_to_material(feats)
+    t0 = time.time()
+    pix = vis_lib.bake_pixel_visibility(ren.bvh, gb.fg_pos, gb.fg_normal,
+                                        oct_res=ren.cfg.visibility_oct_res)
+    torch.cuda.synchronize()
+    pixel_bake_s = time.time() - t0
+    cpu_bvh = bvh_lib.FlatBVH(*(x.cpu() for x in ren.bvh))
+    cpu_tri = tuple(x.cpu() for x in ren.tri_data)
+
+    def cpu_trace(o, d):
+        out = bvh_lib.cast_rays_chunked(cpu_bvh, o, d, tri_data=cpu_tri)
+        return None, None, out["t"][:, None], out["hit"]
+
+    res = {"pixel_bake_view_s": pixel_bake_s, "pixels": n_px, "pixels_raytrace_cpu": n_px_trace}
+    saved = (mat.baked_visibility, mat.ray_trace_fun)
+    for source in ("baked", "pixel", "raytrace"):
+        n = n_px_trace if source == "raytrace" else n_px
+        args = [x[:n] for x in (gb.fg_pos, gb.fg_normal, gb.fg_viewdir)]
+        mats = [x[:n] for x in (m, r, a)]
+        vis = {"baked": (gb.fg_tri[:n], gb.fg_bary[:n]),
+               "pixel": vis_lib.PixelVisibility(pix.table[:n], pix.oct_res),
+               "raytrace": None}[source]
+        mat.set_baked_visibility(saved[0] if source == "baked" else None)
+        mat.set_raytracer(ren.trace if source == "raytrace" else None)
+        cpu_mat.set_baked_visibility(None if source != "baked" else vis_lib.BakedVisibility(
+            saved[0].table.cpu(), saved[0].oct_res))
+        cpu_mat.set_raytracer(cpu_trace if source == "raytrace" else None)
+        cpu_vis = {"baked": (gb.fg_tri[:n].cpu(), gb.fg_bary[:n].cpu()),
+                   "pixel": vis_lib.PixelVisibility(pix.table[:n].cpu(), pix.oct_res),
+                   "raytrace": None}[source]
+        with torch.no_grad():
+            t0 = time.time()
+            gpu = mat.shade_raytracing(*args, 0, *mats[:2], mats[2], None, is_train=False,
+                                       mask=gb.fg_valid[:n], vis_data=vis)["color"]
+            torch.cuda.synchronize()
+            gpu_s = time.time() - t0
+            t0 = time.time()
+            cpu = cpu_mat.shade_raytracing(*(x.cpu() for x in args), 0,
+                                           *(x.cpu() for x in mats), None, is_train=False,
+                                           mask=gb.fg_valid[:n].cpu(), vis_data=cpu_vis)["color"]
+            cpu_s = time.time() - t0
+        err = (gpu.cpu() - cpu).abs()
+        res[source] = {"max_abs": err.max().item(), "share_within_1e-4": float(
+            (err.amax(-1) <= 1e-4).float().mean()), "card_s": gpu_s, "cpu_s": cpu_s, "pixels": n}
+        log(f"launch: {n} pixels of view 0, MC (is_train=False) with {source} visibility, card vs "
+            f"CPU: max |colour diff| {res[source]['max_abs']:.3e}, "
+            f"{100 * res[source]['share_within_1e-4']:.2f}% of pixels within 1e-4 "
+            f"(card {gpu_s:.3f} s, CPU {cpu_s:.2f} s)")
+    # raytrace on all n_px pixels, on the card: the tracer through kernel B
+    # against the same estimator with the plain caster as its tracer
+    def plain_trace(o, d):
+        out = bvh_lib.cast_rays_plain(ren.bvh, o, d, chunk=2048, tri_data=ren.tri_data)
+        return None, None, out["t"][:, None], out["hit"]
+
+    mat.set_baked_visibility(None)
+    args = [x[:n_px] for x in (gb.fg_pos, gb.fg_normal, gb.fg_viewdir)]
+    colours, secs = {}, {}
+    for name, tracer in (("kernel", ren.trace), ("plain", plain_trace)):
+        mat.set_raytracer(tracer)
+        with torch.no_grad():
+            t0 = time.time()
+            colours[name] = mat.shade_raytracing(*args, 0, m, r, a, None, is_train=False,
+                                                 mask=gb.fg_valid[:n_px], vis_data=None)["color"]
+            torch.cuda.synchronize()
+            secs[name] = time.time() - t0
+    err = (colours["kernel"] - colours["plain"]).abs()
+    res["raytrace_card"] = {"max_abs": err.max().item(), "share_within_1e-6": float(
+        (err.amax(-1) <= 1e-6).float().mean()), "kernel_s": secs["kernel"],
+        "plain_s": secs["plain"], "pixels": n_px}
+    log(f"launch: {n_px} pixels of view 0, MC (is_train=False) with raytrace visibility on the "
+        f"card, tracer kernel B vs the plain caster: max |colour diff| "
+        f"{res['raytrace_card']['max_abs']:.3e} (kernel {secs['kernel']:.3f} s, plain "
+        f"{secs['plain']:.2f} s)")
+    mat.set_baked_visibility(saved[0])
+    mat.set_raytracer(saved[1])
+    return res
+
+
+def phase_launch(out_dir: str, clock: float) -> dict:
+    """Main path 3: ``launch_torch.py --train`` on a self-occluding torus."""
+    import csv
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.data.datamodule import RandomCameraDataModule
+    from dreammat_tpu_torch.models import exporter as exporter_lib
+    from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
+    from dreammat_tpu_torch.models.renderer import RaytraceRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.utils import ops as uops
+
+    work = os.path.join("outputs", "chip_smoke_launch")
+    shutil.rmtree(work, ignore_errors=True)
+    v, f = torus_arrays(0.7, 0.28, 192, 96)
+    obj = write_obj(os.path.join(work, "torus.obj"), v, f)
+    V, F = v.shape[0], f.shape[0]
+    steps = 3
+    argv = ["--config", "configs/dreammat.yaml", "--train", "--device", "cuda",
+            *main_overrides(4, f"mesh:{obj}", "1.0"),
+            "data.fix_env_num=5", f"trainer.max_steps={steps}", "data.hybrid_mc_every=2",
+            "data.n_test_views=2", f"exp_root_dir={work}", "use_timestamp=false"]
+    stages = StageLaunches()
+    stages.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
+    stages.wrap(RaytraceRenderer, "build_gbuffer", "test_gbuffers")
+    stages.wrap(exporter_lib, "rasterize_uv_texels", "texel_bake")
+    for fn in (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+               attn.flash_attention_bwd_dkv, bvh_lib.cast_rays_dense):
+        fn.launches = 0
+    t0 = time.time()
+    try:
+        res = launch_torch.main(argv)
+    finally:
+        stages.restore()
+    torch.cuda.synchronize()
+    t_all = time.time() - t0
+    counts = {"flash_attn_fwd": attn.flash_attention_fwd.launches,
+              "ray_cast": bvh_lib.cast_rays_dense.launches}
+    bwd = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
+    system, dm, trial = res["system"], res["datamodule"], res["trial_dir"]
+    log(f"launch: launch_torch.py --train on the torus ({V} vertices, {F} triangles) in "
+        f"{t_all:.1f}s; launches {counts}, kernel B by stage {stages.counts}")
+
+    gate = dm.gate
+    if gate.get("rmse") is None or gate.get("grad_cos") is None:
+        raise AssertionError(f"the fast-path gate did not run: {gate}")
+    log(f"launch: gate: self-occlusion {100 * gate['occlusion']:.2f}%, relative colour RMSE "
+        f"{gate['rmse']:.4f} ({gate['rmse_s']:.2f}s), grad-cos {gate['grad_cos']:.4f} "
+        f"({gate['grad_cos_s']:.2f}s), decision: {gate['decision']}; {gate['seconds']:.2f}s")
+    for stage, n in stages.counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel B was not launched in the stage {stage}")
+    if counts["flash_attn_fwd"] != 46 * steps or bwd != 0:
+        raise AssertionError(f"kernel A launches {counts['flash_attn_fwd']} (expected "
+                             f"{46 * steps}), backward launches {bwd}")
+
+    with open(os.path.join(trial, "logs", "metrics.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"logged losses {losses}")
+    if not all(math.isfinite(x) for x in system.step_losses):
+        raise AssertionError(f"losses {system.step_losses}")
+    ref = system.geometry.init(torch.Generator(device="cuda").manual_seed(res["cfg"].seed))
+    moved = max((p.detach() - q.detach()).abs().max().item()
+                for p, q in zip(system.field.parameters(), ref.parameters()))
+    if not moved > 0:
+        raise AssertionError("the field did not move")
+
+    save = os.path.join(trial, "save")
+    sizes = {}
+    for i in range(2):
+        for sub in ("", "albedo", "roughness", "metallic"):
+            path = os.path.join(save, f"it{steps}-test", sub, f"{i}.png")
+            sizes[os.path.relpath(path, save)] = check_file(path, b"\x89PNG\r\n\x1a\n", 1000)
+    sizes["gif"] = check_file(os.path.join(save, f"it{steps}-test.gif"), b"GIF89a", 1000, b";")
+    exp = os.path.join(save, "export")
+    for name in ("texture_kd.jpg", "texture_metallic.jpg", "texture_roughness.jpg"):
+        sizes[name] = check_file(os.path.join(exp, name), b"\xff\xd8\xff", 10000, b"\xff\xd9")
+    sizes["model.mtl"] = check_file(os.path.join(exp, "model.mtl"), b"newmtl model", 100)
+    with open(os.path.join(exp, "model.obj")) as f:
+        kinds = [line.split(" ", 1)[0] for line in f]
+    got = {k: kinds.count(k) for k in ("v", "vt", "vn", "f")}
+    want = {"v": V, "vt": 3 * F, "vn": V, "f": F}
+    if got != want:
+        raise AssertionError(f"model.obj holds {got}, expected {want}")
+    log(f"launch: files: {sizes}; model.obj v/vt/vn/f {got}")
+
+    # kernel B against the plain caster on the gate's shadow rays and the texel bake
+    mat, ren = system.material, system.renderer
+    gb = dm.data.gbuffers[0]
+    P = gb.fg_pos.shape[0]
+    m = torch.full((P, 1), 0.5, device="cuda")
+    r = torch.full((P, 1), 0.3, device="cuda")
+    refl = uops.reflect(gb.fg_viewdir, gb.fg_normal)
+    dirs = torch.cat([mat.sample_diffuse_directions(gb.fg_normal),
+                      mat.sample_specular_directions(refl, r)], dim=1).reshape(-1, 3)
+    pts = gb.fg_pos[:, None].expand(-1, dirs.shape[0] // P, 3).reshape(-1, 3)
+    so, sd = (pts + dirs * 1e-5).contiguous(), dirs.contiguous()
+    n_check = 65536
+    pick = torch.arange(n_check, device="cuda") * (so.shape[0] // n_check)
+    shadow = _cast_case(f"gate shadow rays ({P} px x {dirs.shape[0] // P})", ren.bvh,
+                        ren.tri_data, so, sd, clock, pick)
+    del so, sd, pts, dirs
+    res_tex = system.exporter.cfg.texture_size
+    ubvh, uo, ud = exporter_lib.uv_texel_rays(*system.exporter.uv, res_tex, device="cuda")
+    lo = res_tex // 2 - 128
+    grid = torch.arange(res_tex * res_tex, device="cuda").reshape(res_tex, res_tex)
+    block = grid[lo:lo + 256, lo:lo + 256].reshape(-1)
+    texel = _cast_case(f"texel bake {res_tex}^2", ubvh, bvh_lib._plane_tri_data(ubvh), uo, ud,
+                       clock, block)
+    del uo, ud
+
+    shading = _shade_sources(system, dm, 4096, 32)
+    for source in ("baked", "pixel", "raytrace"):
+        if shading[source]["share_within_1e-4"] < 0.999:
+            raise AssertionError(f"card vs CPU shading with {source} visibility: {shading[source]}")
+    if shading["raytrace_card"]["max_abs"] > 1e-6:
+        raise AssertionError(f"raytrace shading, kernel B vs plain tracer: {shading['raytrace_card']}")
+
+    step_s = system.step_seconds
+    kinds = system.step_kinds
+    peaks = system.step_peak_gb
+    table_i = [i for i, k in enumerate(kinds) if k == "tables"]
+    mc_i = [i for i, k in enumerate(kinds) if k == "mc"]
+    warm_mc = [i for i in mc_i if i > 0]
+    timing = {
+        "prerender_s": dict(dm.data.seconds), "gate_s": gate["seconds"],
+        "pixel_bake_view_s": shading["pixel_bake_view_s"],
+        "step_s": step_s, "step_kinds": kinds, "step_peak_gb": peaks,
+        "warm_table_step_s": step_s[table_i[-1]] if table_i else None,
+        "warm_mc_step_s": step_s[warm_mc[-1]] if warm_mc else None,
+        "table_step_peak_gb": max(peaks[i] for i in table_i) if table_i else None,
+        "mc_step_peak_gb": max(peaks[i] for i in mc_i) if mc_i else None,
+        "test_s_per_view": system.test_seconds, "export_s": dict(system.exporter.seconds),
+    }
+    log(f"launch: prerender {', '.join(f'{k} {v:.3f}s' for k, v in dm.data.seconds.items())}; "
+        f"gate {gate['seconds']:.2f}s; pixel bake of view 0 ({P} px x 256) "
+        f"{shading['pixel_bake_view_s']:.3f}s")
+    log(f"launch: steps {', '.join(f'{k} {s:.4f}s {g:.2f} GB' for k, s, g in zip(kinds, step_s, peaks))}"
+        f"; losses {', '.join(f'{x:.6g}' for x in system.step_losses)}; field max |moved| "
+        f"{moved:.3e}")
+    log(f"launch: test renders {', '.join(f'{x:.3f}s' for x in system.test_seconds)} per view; "
+        f"export {', '.join(f'{k} {v:.3f}s' for k, v in system.exporter.seconds.items())}")
+    del system, dm, res
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "stage_launches": dict(stages.counts), "gate": gate,
+            "losses": losses, "timing": timing, "shading": shading,
+            "ray_cast": [shadow, texel], "files": sizes}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -730,13 +1072,16 @@ def main() -> int:
     cast_res = phase_ray_cast()
     counts = {"flash_attn_fwd": None, "ray_cast": None}
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
-    main_res = cn_res = None
+    l_counts = {"flash_attn_fwd": None, "ray_cast": None}
+    main_res = cn_res = launch_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
         cn_res = phase_controlnet(args.steps, batch, args.seed,
                                   os.path.join("outputs", "chip_smoke_controlnet"))
         cn_counts = cn_res["counts"]
+        launch_res = phase_launch(args.out, cast_res["clock"])
+        l_counts = launch_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -749,7 +1094,8 @@ def main() -> int:
          "replaces": "dreammat_tpu/ops/attention.py:42",
          "launches": counts["flash_attn_fwd"],
          "launches_by_path": {"dreammat": counts["flash_attn_fwd"],
-                              "controlnet_training": cn_counts["flash_attn_fwd"]},
+                              "controlnet_training": cn_counts["flash_attn_fwd"],
+                              "dreammat_launch_torus": l_counts["flash_attn_fwd"]},
          "max_abs_err": max(r["max_err"] for r in attn_res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["by"], "library_ms": a["lib_ms"], "graph_ms": a["graph_ms"],
@@ -781,6 +1127,13 @@ def main() -> int:
          "source": "dreammat_tpu_torch/csrc/ray_cast.cu",
          "replaces": "dreammat_tpu/ops/bvh.py:579",
          "launches": counts["ray_cast"],
+         "launches_by_path": {"dreammat": counts["ray_cast"],
+                              "dreammat_launch_torus": l_counts["ray_cast"],
+                              "dreammat_launch_torus_by_stage":
+                                  launch_res and launch_res["stage_launches"]},
+         "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
+                                        "by", "bound_all_pairs_ms", "flips", "face_diff")}
+                     for r in (launch_res["ray_cast"] if launch_res else [])],
          "max_abs_err": max(r["t_err"] for r in cast_res["rows"]),
          "sm_clock_mhz": b["sm_clock_mhz"],
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
@@ -790,8 +1143,8 @@ def main() -> int:
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
-                   "kernels": kernels, "main": main_res, "controlnet": cn_res, "card": card},
-                  f, indent=1)
+                   "kernels": kernels, "main": main_res, "controlnet": cn_res,
+                   "launch": launch_res, "card": card}, f, indent=1, default=str)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,14 +1,21 @@
-"""Fixed-camera rig for DreamMat training (counterpart of
-``dreammat_tpu/data/cameras.py``): half the views uniform in elevation
-degrees, half area-uniform on the sphere, stratified azimuths, random
-distance and fov per view. Host-side numpy from a seed, so both packages
-draw the same rig."""
+"""Cameras for DreamMat (counterpart of ``dreammat_tpu/data/cameras.py``).
+
+The fixed training rig: half the views uniform in elevation degrees, half
+area-uniform on the sphere, stratified azimuths, random distance and fov
+per view, host-side numpy from a seed, so both packages draw the same rig.
+The eval circle at one elevation, distance and fov, and one view's rays and
+matrices (``camera_rays_and_matrices``).
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from dreammat_tpu_torch.utils import ops as uops
+from dreammat_tpu_torch.utils.hw import resolve_device
 
 
 @dataclass
@@ -38,3 +45,35 @@ def make_fixed_cameras(n_views: int, elevation_range=(-20.0, 45.0),
     fovy = rng.rand(n_views) * (fovy_range[1] - fovy_range[0]) + fovy_range[0]
     return CameraSet(elevation.astype(np.float32), azimuth.astype(np.float32),
                      dist.astype(np.float32), fovy.astype(np.float32))
+
+
+def make_eval_cameras(n_views: int = 120, elevation_deg: float = 15.0,
+                      camera_distance: float = 4.0, fovy_deg: float = 30.0) -> CameraSet:
+    """The eval circle: ``n_views`` azimuths evenly over [-180, 180)."""
+    azimuth = np.linspace(-180.0, 180.0, n_views, endpoint=False)
+    return CameraSet(np.full(n_views, elevation_deg, dtype=np.float32), azimuth.astype(np.float32),
+                     np.full(n_views, camera_distance, dtype=np.float32),
+                     np.full(n_views, fovy_deg, dtype=np.float32))
+
+
+def camera_rays_and_matrices(cam: CameraSet, i: int, height: int, width: int, device="cuda"):
+    """View ``i``'s rays_o / rays_d [H,W,3] and mvp / w2c / c2w [4,4] on
+    ``device``, with its camera position and parameters."""
+    device = resolve_device(device)
+    pos = uops.camera_position_from_spherical(
+        float(cam.elevation_deg[i]), float(cam.azimuth_deg[i]),
+        float(cam.camera_distances[i])).to(device)
+    c2w = uops.get_c2w(pos[None])
+    fovy = np.deg2rad(float(cam.fovy_deg[i]))
+    proj = uops.get_projection_matrix(torch.tensor([fovy], device=device), width / height,
+                                      0.1, 1000.0)
+    mvp, w2c = uops.get_mvp_matrix(c2w, proj)
+    focal = 0.5 * height / np.tan(0.5 * fovy)
+    dirs = uops.get_ray_directions(height, width, float(focal), device=device)
+    rays_o, rays_d = uops.get_rays(dirs, c2w[0])
+    return {
+        "rays_o": rays_o, "rays_d": rays_d, "mvp_mtx": mvp[0], "w2c": w2c[0], "c2w": c2w[0],
+        "camera_position": pos,
+        "elevation": float(cam.elevation_deg[i]), "azimuth": float(cam.azimuth_deg[i]),
+        "camera_distance": float(cam.camera_distances[i]), "fovy_deg": float(cam.fovy_deg[i]),
+    }

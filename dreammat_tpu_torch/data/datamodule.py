@@ -1,21 +1,27 @@
 """Data module: the fixed camera rig, its prerender, and per-step batches.
 
 Counterpart of the fixed-rig path of ``dreammat_tpu/data/datamodule.py``:
-``setup`` runs the prerender and the fast-path gate, ``collate`` picks a
-random (view, env) pair with the same numpy RNG as the JAX package and
-assembles the 22-channel condition stack (depth 1 + normal 3 + probes 18)
-and the view's light table on the device.
+``setup`` runs the prerender, the fast-path gate (``fastpath_check``:
+``auto`` measures the mesh's self-occlusion first, ``true`` always checks,
+``false`` never; a failed check drops the light tables, and training
+shades through the MC estimator) and the optional per-pixel visibility
+bake (``visibility_pixel_tables``, f16). ``collate`` picks a random
+(view, env) pair with the same numpy RNG as the JAX package and assembles
+the 22-channel condition stack (depth 1 + normal 3 + probes 18), the
+view's light table (none after a drop, and none on every
+``hybrid_mc_every``-th step) and its pixel table. ``eval_view`` builds one
+view of the eval circle with its light table.
 
-Not ported yet (each raises when asked for): random-camera mode, the
-fast-path fidelity check itself (it needs the Monte-Carlo estimators),
-per-pixel visibility tables, hybrid MC steps and the reference PNG cache.
-``static_field_maps`` is accepted; the port has no sort maps (autograd's
-scatter serves the field backward) but keeps their per-view jitter: with
-``jitter_resample: "view"`` the jitter points are drawn once per view.
+Not ported yet (each raises when asked for): random-camera mode and the
+reference PNG cache. ``static_field_maps`` is accepted; the port has no
+sort maps (autograd's scatter serves the field backward) but keeps their
+per-view jitter: with ``jitter_resample: "view"`` the jitter points are
+drawn once per view.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -25,6 +31,7 @@ import torch
 import dreammat_tpu_torch
 from dreammat_tpu_torch.data import cameras as cam_lib
 from dreammat_tpu_torch.data import prerender as prerender_lib
+from dreammat_tpu_torch.data.prerender import _sync
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.hw import resolve_device
 from dreammat_tpu_torch.utils.rng import TorchDraws
@@ -85,11 +92,8 @@ class RandomCameraDataModule(BaseObject):
         if renderer is None or not cfg.use_fix_views:
             raise NotImplementedError(
                 "only the fixed-camera rig with a mesh renderer is ported so far")
-        if cfg.visibility_pixel_tables or cfg.hybrid_mc_every > 0 or (
-                cfg.blender_generate and cfg.reference_cache_dir):
-            raise NotImplementedError(
-                "per-pixel visibility tables, hybrid MC steps and the reference PNG cache "
-                "are not ported yet")
+        if cfg.blender_generate and cfg.reference_cache_dir:
+            raise NotImplementedError("the reference PNG cache is not ported yet")
         self.renderer = renderer
         self.material = material
         self.cameras = cam_lib.make_fixed_cameras(
@@ -97,9 +101,14 @@ class RandomCameraDataModule(BaseObject):
             azimuth_range=cfg.azimuth_range, camera_distance_range=cfg.camera_distance_range,
             fovy_range=cfg.fovy_range, seed=cfg.seed,
         )
+        self.eval_cameras = cam_lib.make_eval_cameras(
+            cfg.n_test_views, cfg.eval_elevation_deg, cfg.eval_camera_distance,
+            cfg.eval_fovy_deg)
         self.rng = np.random.RandomState(cfg.seed + 1)
         self.data: Optional[prerender_lib.PrerenderData] = None
         self._jitter_pts: List[Optional[torch.Tensor]] = [None] * cfg.fix_view_num
+        self._pixel_vis: Optional[List[torch.Tensor]] = None
+        self.gate: Dict[str, Any] = {}
 
     def setup(self) -> None:
         cfg = self.cfg
@@ -110,25 +119,99 @@ class RandomCameraDataModule(BaseObject):
             cond_height=cfg.cond_height, cond_width=cfg.cond_width,
             pixel_budget=cfg.pixel_budget or None,
         )
-        check = cfg.fastpath_check
-        if check == "auto":
-            from dreammat_tpu_torch.ops.visibility import self_occlusion_fraction
-
-            occ = self_occlusion_fraction(self.material.baked_visibility,
-                                          self.renderer.mesh.v_nrm)
-            check = occ >= cfg.fastpath_occlusion_threshold
-            dreammat_tpu_torch.info(
-                "fastpath_check=auto: upper-hemisphere self-occlusion %.2f%% -> %s",
-                occ * 100.0, "fidelity check needed" if check else "convex enough, skipping")
-        if check and getattr(self.material.cfg, "use_prefiltered", False):
-            raise NotImplementedError(
-                "the fast-path fidelity check compares against the Monte-Carlo estimators, "
-                "which are the next slice of the port; set data.fastpath_check=false to train "
-                "on the tables without it")
+        self.gate = self._fastpath_gate()
+        self._pixel_vis = self._bake_pixel_tables() if cfg.visibility_pixel_tables else None
         if cfg.static_field_maps and self.renderer.cfg.jitter_resample == "view":
             draws = TorchDraws(cfg.seed + 7, self.device)
             self._jitter_pts = [self.renderer.draw_jitter_points(gb, draws)
                                 for gb in self.data.gbuffers]
+
+    def _fastpath_gate(self) -> Dict[str, Any]:
+        """Decide whether training may shade through the prefiltered
+        tables: measure the tables against the exact MC estimator on view
+        0 (colour RMSE and gradient cosine) and drop them when either
+        misses its threshold. Returns what was measured and decided, with
+        the seconds each part took."""
+        cfg = self.cfg
+        t0 = time.time()
+        gate: Dict[str, Any] = {"check": cfg.fastpath_check, "occlusion": None, "rmse": None,
+                                "grad_cos": None, "decision": "not checked"}
+        prefiltered = getattr(self.material.cfg, "use_prefiltered", False)
+        check = cfg.fastpath_check
+        if check == "auto":
+            baked = self.material.baked_visibility
+            if baked is None:
+                # no table to probe self-occlusion with (raytrace / none):
+                # tables in use are then always checked
+                check = self.data.table_spec is not None and prefiltered
+                if check:
+                    dreammat_tpu_torch.info("fastpath_check=auto: no baked visibility to probe "
+                                            "self-occlusion with; running the fidelity check")
+            else:
+                from dreammat_tpu_torch.ops.visibility import self_occlusion_fraction
+
+                occ = self_occlusion_fraction(baked, self.renderer.mesh.v_nrm)
+                gate["occlusion"] = occ
+                check = occ >= cfg.fastpath_occlusion_threshold
+                dreammat_tpu_torch.info(
+                    "fastpath_check=auto: upper-hemisphere self-occlusion %.2f%% -> %s",
+                    occ * 100.0, "running fidelity check" if check else "convex enough, skipping")
+        if check and self.data.table_spec is not None and prefiltered:
+            t1 = time.time()
+            rmse = prerender_lib.fastpath_residual(self.renderer, self.material, self.data)
+            _sync(self.device)
+            gate["rmse"], gate["rmse_s"] = rmse, time.time() - t1
+            gcos = None
+            if cfg.fastpath_grad_cos_threshold > 0:
+                t1 = time.time()
+                gcos = prerender_lib.fastpath_grad_cos(self.renderer, self.material, self.data,
+                                                       grad_pixels=cfg.fastpath_grad_pixels)
+                _sync(self.device)
+                gate["grad_cos"], gate["grad_cos_s"] = gcos, time.time() - t1
+            gtxt = "n/a" if gcos is None else f"{gcos:.3f}"
+            if rmse > cfg.fastpath_rmse_threshold or (
+                    gcos is not None and gcos < cfg.fastpath_grad_cos_threshold):
+                if self.material.baked_visibility is not None:
+                    fallback = "per-sample MC with baked-visibility lookups (mc_baked)"
+                elif self.material.ray_trace_fun is not None:
+                    fallback = "exact MC with per-step BVH shadow rays"
+                else:
+                    fallback = "MC without shadow visibility"
+                dreammat_tpu_torch.warn(
+                    "fast-path check failed (relative color RMSE %.4f vs <= %.4f, grad-cos %s "
+                    "vs >= %.2f): dropping prefiltered tables, training will shade through %s "
+                    "(data.visibility_pixel_tables=true upgrades the fallback to per-pixel "
+                    "visibility)", rmse, cfg.fastpath_rmse_threshold, gtxt,
+                    cfg.fastpath_grad_cos_threshold, fallback)
+                self.data.table_spec = None
+                gate["decision"] = "dropped tables: " + fallback
+            else:
+                dreammat_tpu_torch.info(
+                    "fast-path check: relative color RMSE %.4f (<= %.4f), grad-cos %s (>= %.2f) "
+                    "vs exact MC", rmse, cfg.fastpath_rmse_threshold, gtxt,
+                    cfg.fastpath_grad_cos_threshold)
+                gate["decision"] = "kept tables"
+        gate["seconds"] = time.time() - t0
+        dreammat_tpu_torch.info("fast-path gate: %s in %.2fs (RMSE %.2fs, grad-cos %.2fs)",
+                                gate["decision"], gate["seconds"], gate.get("rmse_s", 0.0),
+                                gate.get("grad_cos_s", 0.0))
+        return gate
+
+    def _bake_pixel_tables(self) -> List[torch.Tensor]:
+        """Per-pixel visibility tables [P, O^2] f16, one per view."""
+        from dreammat_tpu_torch.ops import visibility as vis_lib
+
+        t0 = time.time()
+        oct_res = self.renderer.cfg.visibility_oct_res
+        tables = [vis_lib.bake_pixel_visibility(self.renderer.bvh, gb.fg_pos, gb.fg_normal,
+                                                oct_res=oct_res).table.half()
+                  for gb in self.data.gbuffers]
+        _sync(self.device)
+        self.data.seconds["pixel_tables"] = time.time() - t0
+        mb = sum(t.numel() for t in tables) * 2 / 1e6
+        dreammat_tpu_torch.info("per-pixel visibility tables (mc_pixel) for %d views (%.0f MB) "
+                                "in %.2fs", len(tables), mb, self.data.seconds["pixel_tables"])
+        return tables
 
     def collate(self, step: int = 0) -> Dict[str, Any]:
         """One batch: a random fixed view and a random environment."""
@@ -139,8 +222,11 @@ class RandomCameraDataModule(BaseObject):
         d = self.data
         cond = torch.cat([d.depths[view_id].float(), d.normals[view_id].float(),
                           d.lightmaps[view_id, env_id].float()], dim=-1)  # [h,w,22]
-        light_table = torch.cat([d.table_diff[env_id][:, None].float(),
-                                 d.table_spec[view_id, env_id].float()], dim=1)  # [V,1+K,3]
+        hybrid_mc = cfg.hybrid_mc_every > 0 and step % cfg.hybrid_mc_every == 0
+        light_table = None
+        if d.table_spec is not None and not hybrid_mc:
+            light_table = torch.cat([d.table_diff[env_id][:, None].float(),
+                                     d.table_spec[view_id, env_id].float()], dim=1)  # [V,1+K,3]
         cam = self.cameras
         f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
         return {
@@ -149,10 +235,45 @@ class RandomCameraDataModule(BaseObject):
             "gbuffer": d.gbuffers[view_id],
             "jitter_pts": self._jitter_pts[view_id],
             "light_table": light_table,
+            "pixel_vis": None if self._pixel_vis is None else self._pixel_vis[view_id],
             "condition_map": cond.permute(2, 0, 1)[None].contiguous(),  # [1,22,h,w]
             "elevation": f32(cam.elevation_deg[view_id]),
             "azimuth": f32(cam.azimuth_deg[view_id]),
             "camera_distances": f32(cam.camera_distances[view_id]),
             "height": cfg.height,
             "width": cfg.width,
+        }
+
+    def eval_view(self, i: int, env_id: int = 4) -> Dict[str, Any]:
+        """View ``i`` of the eval circle under environment 4 (clamped to
+        the configured count), as the reference's test views: its G-buffer
+        (one pixel budget shared by the eval views) and, when the material
+        uses the tables and the mesh bakes exist, its light table."""
+        cfg = self.cfg
+        env_id = min(env_id, cfg.fix_env_num - 1)
+        cd = cam_lib.camera_rays_and_matrices(self.eval_cameras, i, cfg.eval_height,
+                                              cfg.eval_width, device=self.device)
+        budget = None
+        scale = (cfg.eval_height * cfg.eval_width) / (cfg.height * cfg.width)
+        if self.data is not None and self.data.gbuffers:
+            budget = int(np.ceil(self.data.gbuffers[0].fg_idx.shape[0] * max(scale, 1.0)
+                                 / 1024)) * 1024
+        gb = self.renderer.build_gbuffer(cd["rays_o"], cd["rays_d"], cd["w2c"],
+                                         pixel_budget=budget)
+        light_table = None
+        if self.data is not None and self.data.lvis is not None \
+                and getattr(self.material.cfg, "use_prefiltered", False):
+            light_table = prerender_lib.vertex_table_for_camera(
+                self.renderer, self.material, self.data, cd["camera_position"], env_id)
+        f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
+        ec = self.eval_cameras
+        return {
+            "env_id": env_id,
+            "gbuffer": gb,
+            "light_table": light_table,
+            "elevation": f32(ec.elevation_deg[i]),
+            "azimuth": f32(ec.azimuth_deg[i]),
+            "camera_distances": f32(ec.camera_distances[i]),
+            "height": cfg.eval_height,
+            "width": cfg.eval_width,
         }

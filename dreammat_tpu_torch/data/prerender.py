@@ -6,8 +6,13 @@ radiance -> per-vertex irradiance, plus the FG LUT), then per view the
 per-vertex GGX-prefiltered table, the six light-probe images
 (metallic {0,1} x roughness {0, 0.5, 1}, white base color) under every
 environment, and the depth and normal condition maps, all resized to the
-condition resolution. The npz cache and the reference PNG cache are not
-ported yet.
+condition resolution. ``vertex_table_for_camera`` makes the table of any
+camera (the eval views). The fast-path gate's two measures compare the
+tables with the exact MC estimator (shadow rays through the renderer's
+``trace``): ``fastpath_residual`` (relative colour RMSE of one view) and
+``fastpath_grad_cos`` (cosine of the material gradients on a pixel subset;
+its weights are the named draw ``gate_w``). The npz cache and the
+reference PNG cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -102,6 +107,98 @@ def _probe_view_body(v_pos, v_nrm, lvis, e_d_vertex, fg_lut, cam_pos, gb,
     img = torch.zeros(n_envs, H * W, 18, device=out.device).index_add_(1, gb.fg_idx, vals)
     img = img * gb.mask.reshape(1, -1, 1).float()
     return img.reshape(n_envs, H, W, 18), tab_v.permute(2, 0, 1, 3)
+
+
+def vertex_table_for_camera(renderer, material, data: PrerenderData, cam_pos,
+                            env_id: int) -> torch.Tensor:
+    """Per-vertex light table [V, 1+K, 3] for any camera position: one
+    specular convolution bake against the cached shadowed radiance."""
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    mesh = renderer.mesh
+    cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=mesh.v_pos.device)
+    viewdir_v = uops.safe_normalize(cam_pos.reshape(1, 3) - mesh.v_pos)
+    refl_v = uops.safe_normalize(uops.reflect(viewdir_v, mesh.v_nrm))
+    S_v = vis_lib.bake_vertex_specular_conv(data.lvis, refl_v, TABLE_ALPHAS, data.oct_res)
+    e = data.table_diff[env_id]
+    return torch.cat([e[:, None].float(), S_v[:, :, env_id]], dim=1)
+
+
+def _view_table(data: PrerenderData, view_id: int, env_id: int) -> torch.Tensor:
+    return torch.cat([data.table_diff[env_id][:, None].float(),
+                      data.table_spec[view_id, env_id].float()], dim=1)
+
+
+class _ExactMC:
+    """Within the block, the material shades through the exact estimator:
+    no baked table, shadow rays through ``renderer.trace``."""
+
+    def __init__(self, renderer, material):
+        self.renderer, self.material = renderer, material
+
+    def __enter__(self):
+        self.saved = (self.material.baked_visibility, self.material.ray_trace_fun)
+        self.material.set_baked_visibility(None)
+        self.material.set_raytracer(self.renderer.trace)
+
+    def __exit__(self, *exc):
+        self.material.set_baked_visibility(self.saved[0])
+        self.material.set_raytracer(self.saved[1])
+
+
+def fastpath_residual(renderer, material, data: PrerenderData, view_id: int = 0,
+                      env_id: int = 0, metallic: float = 0.5, roughness_sq: float = 0.3) -> float:
+    """The tables' colour error on one view against the exact MC estimator
+    (per-ray visibility), for a uniform material: foreground RMSE over the
+    exact image's RMS."""
+    gb = data.gbuffers[view_id]
+    P, dev = gb.fg_pos.shape[0], gb.fg_pos.device
+    m = torch.full((P, 1), metallic, device=dev)
+    r = torch.full((P, 1), roughness_sq, device=dev)
+    a = torch.full((P, 3), 0.6, device=dev)
+    with torch.no_grad():
+        pf = material.shade_prefiltered(gb.fg_normal, gb.fg_viewdir, m, r, a,
+                                        _view_table(data, view_id, env_id),
+                                        vis_data=(gb.fg_tri, gb.fg_bary))
+        with _ExactMC(renderer, material):
+            mc = material.shade_raytracing(gb.fg_pos, gb.fg_normal, gb.fg_viewdir, env_id, m, r,
+                                           a, None, is_train=False, mask=gb.fg_valid)
+    valid = gb.fg_valid
+    exact = mc["color"][valid].double()
+    d = pf["color"][valid].double() - exact
+    denom = float(torch.sqrt(torch.mean(exact ** 2))) + 1e-9
+    return float(torch.sqrt(torch.mean(d ** 2))) / denom
+
+
+def fastpath_grad_cos(renderer, material, data: PrerenderData, view_id: int = 0,
+                      env_id: int = 0, grad_pixels: int = 4096, draws=None) -> float:
+    """The cosine between d(sum(color * W))/d(features) through the tables
+    and through the exact MC estimator, on the first ``grad_pixels``
+    pixels of one view, at features 0. ``W`` [GP,3] is the draw
+    ``gate_w`` (uniform) of ``draws``, by default a generator seeded 3."""
+    from dreammat_tpu_torch.utils.rng import TorchDraws
+
+    gb = data.gbuffers[view_id]
+    GP = int(min(grad_pixels, gb.fg_pos.shape[0]))
+    dev = gb.fg_pos.device
+    draws = TorchDraws(3, dev) if draws is None else draws
+    W = draws.uniform("gate_w", (GP, 3)).to(dev)
+    sl = lambda x: x[:GP]
+    table = _view_table(data, view_id, env_id)
+
+    def grad(light_table):
+        z = torch.zeros(GP, 5, device=dev, requires_grad=True)
+        vis = (sl(gb.fg_tri), sl(gb.fg_bary)) if light_table is not None else None
+        out, _ = material(sl(gb.fg_pos), z, z, sl(gb.fg_viewdir), sl(gb.fg_normal), env_id,
+                          None, is_train=False, mask=sl(gb.fg_valid), vis_data=vis,
+                          light_table=light_table)
+        return torch.autograd.grad(torch.sum(out["color"] * W), z)[0].double()
+
+    g_fast = grad(table)
+    with _ExactMC(renderer, material):
+        g_exact = grad(None)
+    denom = float(torch.linalg.norm(g_fast) * torch.linalg.norm(g_exact)) + 1e-12
+    return float(torch.sum(g_fast * g_exact)) / denom
 
 
 def resize_hw(img: torch.Tensor, h: int, w: int) -> torch.Tensor:

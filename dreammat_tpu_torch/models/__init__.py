@@ -1,3 +1,5 @@
 """Components of the ported path (importing registers them)."""
 
-from dreammat_tpu_torch.models import geometry, guidance, material, prompt, renderer  # noqa: F401
+from dreammat_tpu_torch.models import (  # noqa: F401
+    exporter, geometry, guidance, material, prompt, renderer,
+)

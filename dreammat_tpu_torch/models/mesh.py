@@ -2,7 +2,9 @@
 
 Counterpart of ``dreammat_tpu/models/mesh.py`` for the ported path: the OBJ
 loader with the reference's normalization, area-weighted vertex normals,
-``fix_winding_outward`` and the procedural icosphere. Meshes are built with
+``fix_winding_outward``, the procedural icosphere, and the torus of
+``tools/quantify_fastpath.py`` (a self-occluding test shape) with
+``write_obj`` to hand it to the OBJ loader. Meshes are built with
 numpy on the host and held as tensors on one device. The PLY and glb
 loaders are not ported yet.
 """
@@ -157,6 +159,29 @@ def icosphere_arrays(subdiv: int = 2, radius: float = 1.0):
         verts = np.array(vlist)
         faces = np.array(new_faces, dtype=np.int64)
     return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def torus_arrays(R: float = 0.7, r: float = 0.28, nu: int = 24, nv: int = 12):
+    """Vertices [nu*nv,3] float32 and faces [2*nu*nv,3] int64 of a torus
+    about z: ``nu`` segments around the axis, ``nv`` around the tube."""
+    us, vs = np.arange(nu) / nu * 2 * np.pi, np.arange(nv) / nv * 2 * np.pi
+    uu, vv = np.meshgrid(us, vs, indexing="ij")
+    v = np.stack([(R + r * np.cos(vv)) * np.cos(uu), (R + r * np.cos(vv)) * np.sin(uu),
+                  r * np.sin(vv)], -1).reshape(-1, 3).astype(np.float32)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * nv + j, ((i + 1) % nu) * nv + j
+    c, d = ((i + 1) % nu) * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    f = np.stack([np.stack([a, b, c], -1), np.stack([a, c, d], -1)], 2).reshape(-1, 3)
+    return v, f.astype(np.int64)
+
+
+def write_obj(path: str, v: np.ndarray, f: np.ndarray) -> str:
+    """A bare OBJ (``v`` and 1-based ``f`` lines)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
+        fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    return path
 
 
 def make_icosphere(subdiv: int = 2, radius: float = 1.0, device="cuda") -> Mesh:

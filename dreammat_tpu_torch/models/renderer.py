@@ -1,13 +1,15 @@
-"""Ray-cast renderer: G-buffers for the fixed rig and the per-step shade.
+"""Ray-cast renderer: G-buffers, the shadow-ray tracer and the per-step shade.
 
-Counterpart of ``dreammat_tpu/models/renderer.py`` for the tables regime:
-camera rays for spherical look-at cameras (``_views_rays``), one cast per
-chunk of views through the dense caster (kernel B on the card), the
-fixed-pixel-budget foreground compaction with the ControlNet view-space
-normal (x-flipped) and inverse-normalized depth (``_assemble_one``), the
-per-view baked visibility at configure time, and ``shade_view``: field
-query at the G-buffer points and at the jittered points, prefiltered
-shading, scatter into the image, and the 1-pixel edge blend.
+Counterpart of ``dreammat_tpu/models/renderer.py``: camera rays for
+spherical look-at cameras (``_views_rays``), one cast per chunk of views
+through the dense caster (kernel B on the card), the fixed-pixel-budget
+foreground compaction with the ControlNet view-space normal (x-flipped) and
+inverse-normalized depth (``_assemble_one``), a one-camera G-buffer for the
+eval views (``build_gbuffer``), the visibility source chosen at configure
+time (``visibility_mode``: ``baked`` per-vertex tables, ``raytrace`` shadow
+rays through ``trace``, or ``none``), and ``shade_view``: field query at the
+G-buffer points and at the jittered points, shading (tables or the MC
+estimator), scatter into the image, and the 1-pixel edge blend.
 """
 
 from __future__ import annotations
@@ -62,7 +64,13 @@ def _views_rays(elev, azim, dist, fovy_deg, H: int, W: int):
 
 def _assemble_one(mesh, P: int, H: int, W: int, face, t, u, v, ro, rd, w2c) -> GBufferView:
     """One view's G-buffer from its cast: foreground compaction to a fixed
-    budget P (ascending pixel order, strided pick when the count exceeds P)."""
+    budget P in ascending pixel order, picked with a stride
+    (``floor(i * count / P)``) when the count exceeds P, as the JAX batched
+    builder picks. The JAX one-camera builder (the eval views) picks with
+    ``np.linspace`` there instead; the two picks agree whenever the
+    foreground fits the budget, and differ only in a view that warns of
+    subsampling. Condition maps in f32 (the batched builder stores them in
+    f16)."""
     t_pos_idx, v_nrm = mesh.t_pos_idx, mesh.v_nrm
     HW = H * W
     dev = face.device
@@ -86,8 +94,7 @@ def _assemble_one(mesh, P: int, H: int, W: int, face, t, u, v, ro, rd, w2c) -> G
 
     ar = torch.arange(HW, device=dev)
     srt = torch.sort(torch.where(hit, ar, torch.full_like(ar, HW))).values
-    count = hit.sum()
-    stride = torch.clamp(count, min=P).float() / P
+    stride = torch.clamp(hit.sum(), min=P).float() / P
     sel = torch.floor(torch.arange(P, dtype=torch.float32, device=dev) * stride).long()
     srt_p = srt[torch.clamp(sel, 0, HW - 1)]
     valid = srt_p < HW
@@ -108,8 +115,8 @@ def _assemble_one(mesh, P: int, H: int, W: int, face, t, u, v, ro, rd, w2c) -> G
     bary = torch.where(vm, bary, torch.tensor([1.0, 0.0, 0.0], device=dev))
     return GBufferView(
         mask=hit.reshape(H, W),
-        cn_normal=cn_normal.reshape(H, W, 3).half(),
-        cn_depth=cn_depth.reshape(H, W, 1).half(),
+        cn_normal=cn_normal.reshape(H, W, 3),
+        cn_depth=cn_depth.reshape(H, W, 1),
         fg_idx=fg_idx, fg_valid=valid, fg_pos=fg_pos, fg_normal=nrm,
         fg_viewdir=fg_viewdir, fg_tri=tri, fg_bary=bary,
     )
@@ -156,18 +163,54 @@ class RaytraceRenderer(BaseObject):
         self.geometry = geometry
         self.material = material
         self.mesh = geometry.isosurface()
-        if self.cfg.visibility_mode != "baked" or self.cfg.visibility_subdiv > 0:
-            raise NotImplementedError(
-                "only baked per-vertex visibility without subdivision is ported so far")
+        if self.cfg.visibility_subdiv > 0 and self.cfg.visibility_mode == "baked":
+            raise NotImplementedError("visibility_subdiv is not ported yet")
+        if self.cfg.visibility_mode not in ("baked", "raytrace", "none"):
+            raise ValueError(f"unknown visibility_mode '{self.cfg.visibility_mode}'")
         self.bvh = bvh_lib.build_bvh(
             self.mesh.v_pos.cpu().numpy(), self.mesh.t_pos_idx.cpu().numpy(), device=self.device)
         self.tri_data = bvh_lib._plane_tri_data(self.bvh)
-        from dreammat_tpu_torch.ops import visibility as vis_lib
+        tri = self.mesh.v_pos[self.mesh.t_pos_idx]
+        n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
+        self.face_normals = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-20)
+        if self.cfg.visibility_mode == "raytrace":
+            self.material.set_raytracer(self.trace)
+        elif self.cfg.visibility_mode == "baked":
+            from dreammat_tpu_torch.ops import visibility as vis_lib
 
-        self.material.set_baked_visibility(vis_lib.bake_vertex_visibility(
-            self.bvh, self.mesh.v_pos, self.mesh.v_nrm,
-            oct_res=self.cfg.visibility_oct_res, supersample=self.cfg.visibility_supersample,
-        ))
+            self.material.set_baked_visibility(vis_lib.bake_vertex_visibility(
+                self.bvh, self.mesh.v_pos, self.mesh.v_nrm,
+                oct_res=self.cfg.visibility_oct_res, supersample=self.cfg.visibility_supersample,
+            ))
+
+    def trace(self, rays_o: torch.Tensor, rays_d: torch.Tensor):
+        """The reference's trace: (positions, face normals, depth [N,1],
+        hit mask). The JAX package runs its shadow rays through the XLA
+        dense caster, not its Pallas kernel; here they go through
+        ``cast_rays_chunked``, so kernel B on the card. That changes no
+        answer: kernel B returns bit for bit what the plain caster
+        (``cast_rays_plain``, the port of the JAX dense caster) returns."""
+        out = bvh_lib.cast_rays_chunked(self.bvh, rays_o, rays_d, tri_data=self.tri_data)
+        t = out["t"]
+        positions = rays_o + t[:, None] * rays_d
+        normals = self.face_normals[torch.clamp(out["face"], min=0).long()]
+        return positions, normals, t[:, None], out["hit"]
+
+    def build_gbuffer(self, rays_o: torch.Tensor, rays_d: torch.Tensor, w2c: torch.Tensor,
+                      pixel_budget: Optional[int] = None) -> GBufferView:
+        """One camera's G-buffer from its rays [H,W,3] (the eval views)."""
+        H, W = rays_o.shape[:2]
+        ro, rd = rays_o.reshape(-1, 3).float(), rays_d.reshape(-1, 3).float()
+        out = bvh_lib.cast_rays_chunked(self.bvh, ro, rd, tri_data=self.tri_data)
+        hit_count = int((out["face"] >= 0).sum())
+        P = pixel_budget or self.cfg.pixel_budget
+        if not P or P <= 0:
+            P = int(np.ceil(max(hit_count, 1) / 1024) * 1024)
+        if hit_count > P:
+            dreammat_tpu_torch.warn("foreground pixels (%d) exceed pixel budget (%d); "
+                                    "subsampling", hit_count, P)
+        return _assemble_one(self.mesh, P, H, W, out["face"], out["t"], out["u"], out["v"],
+                             ro, rd, w2c)
 
     def build_gbuffers_batched(self, cam, height: int, width: int,
                                pixel_budget: Optional[int] = None, view_chunk: int = 8):
@@ -197,9 +240,10 @@ class RaytraceRenderer(BaseObject):
         gbuffers: List[GBufferView] = []
         for c, (ro, rd, w2c) in zip(casts, rays):
             for i in range(ro.shape[0]):
-                gbuffers.append(_assemble_one(
-                    self.mesh, P, height, width, c["face"][i], c["t"][i], c["u"][i],
-                    c["v"][i], ro[i], rd[i], w2c[i]))
+                gb = _assemble_one(self.mesh, P, height, width, c["face"][i], c["t"][i],
+                                   c["u"][i], c["v"][i], ro[i], rd[i], w2c[i])
+                gbuffers.append(gb._replace(cn_normal=gb.cn_normal.half(),
+                                            cn_depth=gb.cn_depth.half()))
         stacked = GBufferView(*(torch.stack(xs) for xs in zip(*gbuffers)))
         return gbuffers, stacked
 
@@ -223,18 +267,28 @@ class RaytraceRenderer(BaseObject):
     def shade_view(self, field_, gb: GBufferView, env_id: int, draws=None,
                    light_table: Optional[torch.Tensor] = None,
                    jitter_pts: Optional[torch.Tensor] = None,
-                   is_train: bool = True) -> Dict[str, torch.Tensor]:
+                   is_train: bool = True,
+                   pixel_vis: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Field query + shade + scatter for one view. ``jitter_pts`` are the
-        view's cached jitter points; without them they are drawn now."""
+        view's cached jitter points; without them they are drawn now (an
+        eval render without ``draws`` uses the G-buffer points, which only
+        zeroes its unused smoothness loss). ``pixel_vis`` [P, O^2] switches
+        the MC estimator's visibility to the view's per-pixel table."""
         H, W = gb.mask.shape
         if jitter_pts is None:
-            jitter_pts = self.draw_jitter_points(gb, draws)
+            jitter_pts = gb.fg_pos if (draws is None and not is_train) \
+                else self.draw_jitter_points(gb, draws)
         feats = self.geometry.apply(field_, gb.fg_pos)
         feats_jitter = self.geometry.apply(field_, jitter_pts)
+        if pixel_vis is not None:
+            from dreammat_tpu_torch.ops.visibility import PixelVisibility
+
+            vis_data = PixelVisibility(pixel_vis, self.cfg.visibility_oct_res)
+        else:
+            vis_data = (gb.fg_tri, gb.fg_bary)
         shade_out, mat_reg = self.material(
-            gb.fg_pos, feats, feats_jitter, gb.fg_viewdir, gb.fg_normal, env_id,
-            is_train=is_train, mask=gb.fg_valid, vis_data=(gb.fg_tri, gb.fg_bary),
-            light_table=light_table,
+            gb.fg_pos, feats, feats_jitter, gb.fg_viewdir, gb.fg_normal, env_id, draws,
+            is_train=is_train, mask=gb.fg_valid, vis_data=vis_data, light_table=light_table,
         )
         maskf = gb.mask.reshape(-1, 1).float()
         dev = maskf.device
@@ -262,5 +316,9 @@ class RaytraceRenderer(BaseObject):
             "albedo": composite(shade_out["albedo"], white),
             "metalness": composite(shade_out["metalness"], one),
             "roughness": composite(shade_out["roughness"], one),
+            "specular_light": composite(shade_out["specular_light"], white),
+            "diffuse_light": composite(shade_out["diffuse_light"], white),
+            "specular_color": composite(shade_out["specular_color"], white),
+            "diffuse_color": composite(shade_out["diffuse_color"], white),
             "loss_mat_reg": mat_reg,
         }

@@ -2,7 +2,8 @@
 
 Counterpart of the parts of ``dreammat_tpu/ops/envmap.py`` the tables regime
 uses: ``make_procedural_envmap`` (numpy, used when no HDR asset exists),
-``resize_envmap``, equirect sampling with z as the polar axis, and the
+``resize_envmap``, equirect sampling with z as the polar axis (nearest, as
+the Monte-Carlo estimators read the environment, and bilinear), and the
 computed Karis split-sum LUT (``compute_fg_lut`` / ``sample_fg_lut``).
 """
 
@@ -55,6 +56,15 @@ def equirect_uv(directions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     theta = torch.arccos(torch.clamp(z, -1.0, 1.0))
     phi = torch.remainder(torch.atan2(y, x), 2.0 * math.pi)
     return -phi / (2.0 * math.pi) + 0.5, theta / math.pi
+
+
+def sample_equirect_nearest(env: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """Nearest equirect lookup (the reference's). env [H,W,3]."""
+    H, W = env.shape[0], env.shape[1]
+    u, v = equirect_uv(directions)
+    xi = torch.remainder((u * W).to(torch.int64), W)
+    yi = torch.remainder((v * H).to(torch.int64), H)
+    return env[yi, xi]
 
 
 def sample_equirect_bilinear(env: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""Baked per-vertex visibility and the octahedral convolution bakes.
+"""Baked visibility, its lookups, and the octahedral convolution bakes.
 
-Counterpart of the tables-regime parts of ``dreammat_tpu/ops/visibility.py``:
-the octahedral direction mapping, ``bake_vertex_visibility`` (V x O^2 rays
-through the dense caster, kernel B on the card), ``self_occlusion_fraction``,
-the fused env x visibility cache ``bake_shadowed_radiance``, and the
-gather-free quadrature bakes ``bake_vertex_irradiance_conv`` and
-``bake_vertex_specular_conv`` that the prerender builds the light tables
-from.
+Counterpart of ``dreammat_tpu/ops/visibility.py``: the octahedral direction
+mapping and its bilinear footprint, ``bake_vertex_visibility`` (V x O^2 rays
+through the dense caster, kernel B on the card) and its per-pixel twin
+``bake_pixel_visibility``, the Monte-Carlo estimators' lookups
+(``lookup_visibility``, barycentric over a triangle's vertex tables, and
+``lookup_visibility_pixel``), ``self_occlusion_fraction``, the fused env x
+visibility cache ``bake_shadowed_radiance``, and the gather-free quadrature
+bakes ``bake_vertex_irradiance_conv`` and ``bake_vertex_specular_conv`` that
+the prerender builds the light tables from.
+
+The JAX package's environment switches of the lookups (``DREAMMAT_VIS_*``,
+A/B knobs of its fidelity tool) are not ported: the lookups always filter
+bilinearly and carry no gradient.
 """
 
 from __future__ import annotations
@@ -26,6 +32,15 @@ class BakedVisibility(NamedTuple):
     oct_res: int
 
 
+class PixelVisibility(NamedTuple):
+    """Per-pixel octahedral visibility of one G-buffer: row i belongs to
+    the view's foreground pixel i, so the lookup has no barycentric
+    spatial error, only directional binning."""
+
+    table: torch.Tensor  # [P, O*O] (1 = unoccluded)
+    oct_res: int
+
+
 def _flip_sign(xy):
     return torch.sign(torch.where(xy == 0, torch.ones_like(xy), xy))
 
@@ -38,6 +53,38 @@ def oct_uv_to_dir(uv: torch.Tensor) -> torch.Tensor:
     xy = torch.where(z < 0, folded, xy)
     d = torch.cat([xy, z], dim=-1)
     return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def dir_to_oct_uv(d: torch.Tensor) -> torch.Tensor:
+    """Unit dirs [...,3] -> octahedral uv in [0,1]^2."""
+    n = d / (d[..., 0:1].abs() + d[..., 1:2].abs() + d[..., 2:3].abs() + 1e-12)
+    xy = n[..., :2]
+    folded = (1.0 - xy.flip(-1).abs()) * _flip_sign(xy)
+    xy = torch.where(n[..., 2:3] < 0, folded, xy)
+    return xy * 0.5 + 0.5
+
+
+def oct_bilinear_bins_weights(d: torch.Tensor, oct_res: int):
+    """Bilinear texel footprint on the octahedral map: bins [...,4] (int64)
+    and weights [...,4] (sum 1) for unit dirs [...,3]. Neighbours outside
+    the square wrap by the octahedral mirror-with-flip rule."""
+    O = oct_res
+    uv = dir_to_oct_uv(d)
+    x = uv[..., 0] * O - 0.5
+    y = uv[..., 1] * O - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0f)[..., None], (y - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    ix = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    iy = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    over_x = (ix < 0) | (ix > O - 1)
+    ix = torch.where(ix < 0, -1 - ix, torch.where(ix > O - 1, 2 * O - 1 - ix, ix))
+    iy = torch.where(over_x, O - 1 - iy, iy)
+    over_y = (iy < 0) | (iy > O - 1)
+    iy = torch.where(iy < 0, -1 - iy, torch.where(iy > O - 1, 2 * O - 1 - iy, iy))
+    ix = torch.where(over_y, O - 1 - ix, ix)
+    w = torch.cat([(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy], dim=-1)
+    return iy * O + ix, w
 
 
 def _oct_uv_to_dir_np(uv: np.ndarray) -> np.ndarray:
@@ -148,6 +195,51 @@ def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: tor
         vis = (~hit).float().reshape(c, oct_res, s, oct_res, s)
         tables.append(vis.mean(dim=(2, 4)).reshape(c, oct_res * oct_res).half())
     return BakedVisibility(table=torch.cat(tables), oct_res=oct_res)
+
+
+def bake_pixel_visibility(bvh: bvh_lib.FlatBVH, pts: torch.Tensor, normals: torch.Tensor,
+                          oct_res: int = 16, eps: float = 1e-3, chunk: int = 1 << 16,
+                          supersample: int = 1) -> PixelVisibility:
+    """An octahedral visibility table at each G-buffer pixel: the vertex
+    bake (same caster, kernel B on the card, same bins) run at the shading
+    points. Padding pixels bake harmless rows; their lights are zeroed
+    downstream."""
+    bv = bake_vertex_visibility(bvh, pts, normals, oct_res=oct_res, eps=eps, chunk=chunk,
+                                supersample=supersample)
+    return PixelVisibility(table=bv.table, oct_res=oct_res)
+
+
+def _postprocess_vis(out: torch.Tensor) -> torch.Tensor:
+    """The shared tail of the lookups: the detach. The exact estimator's
+    visibility is a boolean hit, a constant to autograd; a differentiable
+    bilinear lookup would add a horizon term that the reference's gradient
+    never holds."""
+    return out.detach()
+
+
+def lookup_visibility(baked: BakedVisibility, tri_verts: torch.Tensor, bary: torch.Tensor,
+                      directions: torch.Tensor) -> torch.Tensor:
+    """Soft visibility [P,S]: the barycentric mix of the three vertex tables
+    of each pixel's triangle (``tri_verts`` [P,3], ``bary`` [P,3]) at each
+    direction [P,S,3], bilinear over the bins. Carries no gradient."""
+    t = baked.table.float()
+    P, S = directions.shape[:2]
+    bins4, w4 = oct_bilinear_bins_weights(directions, baked.oct_res)
+    bins = bins4.reshape(P, S * 4)
+    out = (bary[:, 0:1] * t[tri_verts[:, 0]].gather(1, bins)
+           + bary[:, 1:2] * t[tri_verts[:, 1]].gather(1, bins)
+           + bary[:, 2:3] * t[tri_verts[:, 2]].gather(1, bins))
+    return _postprocess_vis((out.reshape(P, S, 4) * w4).sum(-1))
+
+
+def lookup_visibility_pixel(baked: PixelVisibility, directions: torch.Tensor) -> torch.Tensor:
+    """Per-sample visibility [P,S] from a per-pixel table (row i is pixel
+    i); the same filtering and detach as ``lookup_visibility``."""
+    t = baked.table.float()
+    P, S = directions.shape[:2]
+    bins4, w4 = oct_bilinear_bins_weights(directions, baked.oct_res)
+    out = (t.gather(1, bins4.reshape(P, S * 4)).reshape(P, S, 4) * w4).sum(-1)
+    return _postprocess_vis(out)
 
 
 def self_occlusion_fraction(baked: BakedVisibility, v_nrm: torch.Tensor,

@@ -98,6 +98,41 @@ def get_w2c(c2w):
     return w2c
 
 
+def get_ray_directions(H: int, W: int, focal: float, device="cpu"):
+    """Camera-space ray directions [H,W,3] through pixel centres
+    (cx = W/2, cy = H/2, y up, looking down -z)."""
+    i = torch.arange(W, dtype=torch.float32, device=device) + 0.5
+    j = torch.arange(H, dtype=torch.float32, device=device) + 0.5
+    jj, ii = torch.meshgrid(j, i, indexing="ij")
+    return torch.stack([(ii - W / 2.0) / focal, -(jj - H / 2.0) / focal, -torch.ones_like(ii)],
+                       dim=-1)
+
+
+def get_rays(directions, c2w):
+    """World rays (origins, unit directions), each [H,W,3], for
+    camera-space ``directions`` [H,W,3] and one ``c2w`` [4,4]."""
+    rays_d = safe_normalize((directions[..., None, :] * c2w[:3, :3]).sum(-1))
+    return c2w[:3, 3].expand_as(rays_d), rays_d
+
+
+def get_projection_matrix(fovy, aspect_wh: float, near: float, far: float):
+    """OpenGL perspective with a y flip, [B,4,4]; ``fovy`` [B] radians."""
+    fovy = torch.atleast_1d(torch.as_tensor(fovy, dtype=torch.float32))
+    t = torch.tan(fovy / 2.0)
+    proj = torch.zeros(fovy.shape[0], 4, 4, dtype=torch.float32, device=fovy.device)
+    proj[:, 0, 0] = 1.0 / (t * aspect_wh)
+    proj[:, 1, 1] = -1.0 / t
+    proj[:, 2, 2] = -(far + near) / (far - near)
+    proj[:, 2, 3] = -2.0 * far * near / (far - near)
+    proj[:, 3, 2] = -1.0
+    return proj
+
+
+def get_mvp_matrix(c2w, proj):
+    w2c = get_w2c(c2w)
+    return proj @ w2c, w2c
+
+
 def get_orthogonal_directions(directions):
     """A unit tangent orthogonal to each direction."""
     x, y, z = directions[..., 0:1], directions[..., 1:2], directions[..., 2:3]

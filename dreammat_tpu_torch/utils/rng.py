@@ -1,12 +1,16 @@
 """The random draws of a train step, by name.
 
 The step draws: the jitter offsets of the smoothness query points
-(``jitter_angle`` uniform and ``jitter_eps`` normal, each [P,1]), the VAE
-posterior noise (``vae_eps``, normal, latent shape), the timestep
-(``t``, uniform [B]) and the latent noise (``noise``, normal, latent
-shape). JAX's threefry and torch's Philox give different numbers from one
-seed, so a test hands the port the reference's draws through its own object
-with the same two methods.
+(``jitter_angle`` uniform and ``jitter_eps`` normal, each [P,1]), on a
+Monte-Carlo step the per-pixel azimuth rotations of the diffuse and the
+specular direction sets (``mc_rot_diffuse`` and ``mc_rot_specular``,
+uniform [P,1] each, drawn before any direction is formed), the VAE
+posterior noise (``vae_eps``, normal, latent shape), the timestep (``t``,
+uniform [B]) and the latent noise (``noise``, normal, latent shape). The
+fast-path gate draws its gradient weights once (``gate_w``, uniform
+[pixels, 3]). JAX's threefry and torch's Philox give different numbers
+from one seed, so a test hands the port the reference's draws through its
+own object with the same two methods.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@
   afterwards no ``jax``, ``jaxlib``, ``flax``, ``optax`` or
   ``dreammat_tpu`` module may be in ``sys.modules``.
 - The entry points (system, datamodule, guidance, renderer, ControlNet
-  trainer) and the public functions that place tensors (schedule, meshes,
-  BVH, FG LUT) take ``device``, default to CUDA, and raise without a GPU
-  unless the caller passes ``device="cpu"``.
+  trainer, mesh exporter, ``launch_torch.py``) and the public functions
+  that place tensors (schedule, meshes, BVH, FG LUT, eval-camera rays, the
+  texel rasterizer) take ``device``, default to CUDA, and raise without a
+  GPU unless the caller passes ``device="cpu"`` (``--device cpu``).
+- ``launch_torch.py`` imports nothing of JAX either.
 - No source file of the port calls PyTorch's fused attention.
 """
 
@@ -14,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -63,7 +66,7 @@ def _tiny_cfg():
     ])
 
 
-@pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer"])
+@pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer", "exporter"])
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -78,6 +81,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
             cfg.system["guidance"], **kw),
         "renderer": lambda **kw: find("raytracing-renderer")(
             cfg.system.get("renderer", {}), sys_cpu.geometry, sys_cpu.material, **kw),
+        "exporter": lambda **kw: find("mesh-exporter")(
+            {"texture_size": 8}, sys_cpu.geometry, sys_cpu.material, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
@@ -85,7 +90,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
 
 
 def _default_device_calls(tmp_path):
-    from dreammat_tpu_torch.models import mesh
+    from dreammat_tpu_torch.data import cameras
+    from dreammat_tpu_torch.models import exporter, mesh
     from dreammat_tpu_torch.models.diffusion import scheduler
     from dreammat_tpu_torch.ops import bvh, envmap
 
@@ -101,12 +107,17 @@ def _default_device_calls(tmp_path):
         "load_mesh": lambda **kw: mesh.load_mesh(str(obj), **kw),
         "build_bvh": lambda **kw: bvh.build_bvh(v, f, **kw),
         "compute_fg_lut": lambda **kw: envmap.compute_fg_lut(res=4, n_samples=8, **kw),
+        "camera_rays_and_matrices": lambda **kw: cameras.camera_rays_and_matrices(
+            cameras.make_eval_cameras(2), 0, 4, 4, **kw),
+        "rasterize_uv_texels": lambda **kw: exporter.rasterize_uv_texels(
+            np.float32([[0, 0], [1, 0], [0, 1]]), np.int64([[0, 1, 2]]), 4, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["controlnet_trainer", "make_schedule", "make_icosphere",
                                   "mesh_from_numpy", "load_mesh", "build_bvh",
-                                  "compute_fg_lut"])
+                                  "compute_fg_lut", "camera_rays_and_matrices",
+                                  "rasterize_uv_texels"])
 def test_functions_default_to_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -114,6 +125,35 @@ def test_functions_default_to_cuda(name, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
     assert call(device="cpu") is not None
+
+
+def test_launch_torch_needs_cuda_and_imports_nothing_of_jax():
+    """``launch_torch.main`` without ``--device cpu`` raises for want of a
+    GPU (also with ``--gpu 0``), after importing the port: no JAX module is
+    loaded by then."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    code = (
+        "import sys\n"
+        "import launch_torch\n"
+        "args = ['--config', 'configs/dreammat_tiny.yaml', '--train',\n"
+        "        'system.prompt_processor.prompt=a red apple',\n"
+        "        'system.geometry.shape_init=procedural:sphere']\n"
+        "for extra in ([], ['--gpu', '0']):\n"
+        "    try:\n"
+        "        launch_torch.main(args + extra)\n"
+        "        print('ran')\n"
+        "    except RuntimeError as e:\n"
+        "        print('raised', 'CUDA' in str(e))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('dreammat_tpu_torch' in sys.modules, repr(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-3:] == ["raised True", "raised True", "True []"]
 
 
 def test_no_fused_attention_call():

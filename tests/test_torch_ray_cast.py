@@ -4,18 +4,23 @@ On the CPU: the pre-division reject of ``csrc/ray_cast.cu`` (in its plain
 form, ``cast_reject_plain``) never drops a pair that the plain test
 accepts; the padded boxes of the kernel's cull always meet the segment of
 a ray up to its plain hit; and the visibility bake's direction-major Morton
-order gives the same table as the vertex-major order. On the card
-(``cuda``-marked; ``python -m pytest --noconftest -m cuda``): the kernel
-returns bit for bit what ``cast_rays_plain`` returns, on ties, shared
-edges, degenerate triangles, rays that miss, t_max clipping and ragged R
-and T.
+order gives the same table as the vertex-major order. The cull and the
+reject are also checked on the traffic of the Monte-Carlo estimators and
+the export: shadow rays leaving a self-occluding torus 1e-5 off its
+surface, and the texel rays of the UV plane (every triangle at z = 0,
+every ray along -z, so the slab test divides by 1e-12 on x and y and every
+hit has t = 1). On the card (``cuda``-marked; ``python -m pytest
+--noconftest -m cuda``): the kernel returns bit for bit what
+``cast_rays_plain`` returns, on ties, shared edges, degenerate triangles,
+rays that miss, t_max clipping, ragged R and T, shadow rays and the UV
+plane (texel centres on shared edges included).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dreammat_tpu_torch.models.mesh import icosphere_arrays
+from dreammat_tpu_torch.models.mesh import icosphere_arrays, torus_arrays
 from dreammat_tpu_torch.ops import bvh as tbvh
 from dreammat_tpu_torch.ops import visibility as tvis
 
@@ -33,6 +38,44 @@ def _rays(rng, n, radius=3.0, spread=0.3):
     d = rng.normal(size=(n, 3)) * spread - o
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
     return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+
+
+def _shadow_rays(v, f, n_pts=96, seed=0):
+    """Rays from points on random triangles, along directions of the upper
+    hemisphere of their face normal, origins 1e-5 along the direction (the
+    MC estimator's shadow rays)."""
+    rng = np.random.default_rng(seed)
+    face = rng.integers(0, f.shape[0], n_pts)
+    bary = rng.dirichlet([2.0, 2.0, 2.0], n_pts)
+    tri = v[f[face]].astype(np.float64)
+    p = (bary[:, :, None] * tri).sum(1)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = rng.normal(size=(n_pts, 64, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = np.where((d * n[:, None]).sum(-1, keepdims=True) < 0, -d, d).reshape(-1, 3)
+    o = np.repeat(p, 64, axis=0) + d * 1e-5
+    return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+
+
+def _uv_plane(res=64):
+    """(UV vertices at z = 0, faces, texel origins, directions): the
+    torus's smart-unwrap charts beside a grid of diagonal-split quads
+    whose edges pass through texel centres."""
+    from dreammat_tpu_torch.models.exporter import smart_unwrap, uv_texel_rays
+
+    v, f = torus_arrays()
+    vt, ft = smart_unwrap(v, f)
+    k = 8  # a k x k grid of quads over [0, 0.5]^2, each split on its diagonal
+    g = np.stack(np.meshgrid(np.arange(k + 1), np.arange(k + 1), indexing="xy"), -1)
+    gv = (g.reshape(-1, 2) * (0.5 / k)).astype(np.float32)
+    q = np.arange(k * k)
+    a = (q // k) * (k + 1) + q % k
+    grid_f = np.concatenate([np.stack([a, a + 1, a + k + 2], 1), np.stack([a, a + k + 2, a + k + 1], 1)])
+    verts = np.concatenate([vt * 0.5 + 0.5, gv])  # charts in [0.5, 1]^2
+    faces = np.concatenate([ft, grid_f + len(vt)])
+    bvh, o, d = uv_texel_rays(verts, faces, res, device="cpu")
+    return bvh, o, d
 
 
 def _plain_accepts(A, B, tb):
@@ -99,20 +142,29 @@ def test_pre_division_reject_adversarial(tb_value):
     _assert_reject_is_safe(A, B.expand_as(A), tb)
 
 
-def test_pre_division_reject_on_the_caster_pairs():
+@pytest.mark.parametrize("kind", ["sphere", "shadow", "uv_plane"])
+def test_pre_division_reject_on_the_caster_pairs(kind):
     # every (ray, triangle) pair of a cast, with the ray's final best t as tb
-    v, f = _sphere(2)
-    b = tbvh.build_bvh(v, f, device="cpu")
+    if kind == "uv_plane":
+        b, o, d = _uv_plane(32)
+    else:
+        v, f = _sphere(2) if kind == "sphere" else torus_arrays()
+        b = tbvh.build_bvh(v, f, device="cpu")
+        o, d = _rays(np.random.default_rng(3), 500) if kind == "sphere" else _shadow_rays(v, f, 8)
     rows, tid = tbvh._plane_tri_data(b)
-    o, d = _rays(np.random.default_rng(3), 500)
     out = tbvh.cast_rays_plain(b, o, d, t_max=10.0)
     dot = lambda x: x[:, 0:1] * rows[0] + x[:, 1:2] * rows[1] + x[:, 2:3] * rows[2]
     A, B = dot(o) + rows[3], dot(d)
     fractions = []
     for tb in (torch.tensor(10.0), torch.where(out["hit"], out["t"], torch.tensor(10.0))[:, None]):
         fractions.append(float(_assert_reject_is_safe(A, B, tb).float().mean()))
-    # the sign rule alone rejects some; the running best rejects more
-    assert 0.1 < fractions[0] < fractions[1]
+    if kind == "uv_plane":
+        # every plane is 1 ahead of every ray (t = 1 exactly): no pair can
+        # be rejected before the division; the strict t < best decides ties
+        assert fractions == [0.0, 0.0]
+    else:
+        # the sign rule alone rejects some; the running best rejects more
+        assert 0.1 < fractions[0] < fractions[1]
 
 
 def _slab_meets(o, d, tb, lo, hi):
@@ -126,16 +178,19 @@ def _slab_meets(o, d, tb, lo, hi):
     return t0 <= t1
 
 
-@pytest.mark.parametrize("kind", ["random", "grazing", "bake"])
+@pytest.mark.parametrize("kind", ["random", "grazing", "bake", "shadow", "uv_plane"])
 def test_cull_boxes_meet_every_plain_hit(kind):
     """The cull may skip a box only if no ray can hit inside it: the tile
     and sub-tile boxes of each ray's plain hit meet its segment (0, t], t
     the hit's t (the kernel's running best is never below it there)."""
-    v, f = _sphere(3)
+    v, f = torus_arrays() if kind == "shadow" else _sphere(3)
     b = tbvh.build_bvh(v, f, device="cpu")
-    rows, tid = tbvh._plane_tri_data(b)
     rng = np.random.default_rng(11)
-    if kind == "random":
+    if kind == "shadow":
+        o, d = _shadow_rays(v, f, 48)
+    elif kind == "uv_plane":
+        b, o, d = _uv_plane(64)
+    elif kind == "random":
         o, d = _rays(rng, 3000)
     elif kind == "grazing":  # rays tangent to the sphere: silhouette hits
         o, d = _rays(rng, 3000, spread=0.0)
@@ -144,6 +199,7 @@ def test_cull_boxes_meet_every_plain_hit(kind):
     else:
         vp, vn = torch.from_numpy(v[:64]), torch.from_numpy(v[:64])
         o, d, _ = tvis.bake_rays(vp, vn / vn.norm(dim=-1, keepdim=True), tvis._grid_dirs(8, "cpu"), 1e-3)
+    rows, tid = tbvh._plane_tri_data(b)
     out = tbvh.cast_rays_plain(b, o, d, tri_data=(rows, tid))
     hit = out["hit"]
     assert bool(hit.any())
@@ -281,3 +337,22 @@ def test_kernel_exact_on_a_bake_batch(cuda):
                              tvis._grid_dirs(16, cuda), 1e-3)
     got = _assert_exact(b, o, d)
     assert 0.2 < float(got["hit"].float().mean()) < 0.8
+
+
+@pytest.mark.cuda
+def test_kernel_exact_on_shadow_rays(cuda):
+    v, f = torus_arrays(nu=96, nv=48)
+    b = _mesh_bvh(v, f, cuda)
+    o, d = _shadow_rays(v, f, 2048, seed=4)
+    got = _assert_exact(b, o.to(cuda), d.to(cuda))
+    assert 0.05 < float(got["hit"].float().mean()) < 0.95  # the torus shadows itself
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [64, 256])
+def test_kernel_exact_on_the_uv_plane(cuda, res):
+    b, o, d = _uv_plane(res)
+    b = tbvh.FlatBVH(*(x.to(cuda) for x in b))
+    got = _assert_exact(b, o.to(cuda), d.to(cuda))
+    assert bool((got["t"][got["hit"]] == 1.0).all())
+    assert 0.3 < float(got["hit"].float().mean()) < 0.9
