@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about five minutes
+    python3 chip_smoke.py                 # everything, about six minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -74,7 +74,29 @@ which fails the run on any error:
    pixels with ray-traced visibility on the card, kernel B as the tracer
    against the plain caster as the tracer, within 1e-6. Every stage's
    seconds and the table and MC steps' peak memory are printed.
-9. A ``{"kernels": [...]}`` line, the card's line, and last
+9. Main path 4: DreamMat from a user's own files (``drive_user_files``),
+   written under ``outputs/chip_smoke_user/`` and removed after: SD2.1-width
+   random weights in the diffusers layout as fp16 safetensors through the
+   port's writer (``unet/``, ``vae/`` under the old attention names as 1x1
+   convolutions, ``text_encoder/`` with a ``position_ids`` buffer; about 2.6
+   GB), five 256 x 512 RGBE maps, the torus of main path 3 as .glb (and as
+   .ply, loaded to the same mesh), and a prompt library. Then
+   ``launch_torch.main(["--train", ...])`` twice in this process on the .glb
+   with a ``lib:`` prompt, Perp-Neg (five replicas per UNet pass),
+   Adan, an embedding cache and a prerender cache, 4 views, 2 steps, no
+   export (main path 3 covers it). After the first run every tensor of the
+   guidance's UNet and VAE and of the prompt processor's CLIP must equal
+   the file's (per-tensor checksums) with every key loaded; the second run
+   must hit both caches and get the first run's condition maps as the
+   cache quantizes them. Then ``generate_controlnet_data_torch.main`` on
+   the .glb with the HDR maps (4 views x 5 environments at 256^2), loaded
+   through ``ControlNetDataset``: shapes and finite values. Kernel A must
+   have run 46 times a step, kernel B in the prerenders and the generator;
+   then kernel A against its plain version at the Perp-Neg batch (B = 5,
+   N = M = 4096, H = 5; with SDPA's time there) and kernel B bit for bit on
+   one 512^2 G-buffer view of the .glb mesh. The seconds of the weight
+   loading, both prerenders, each step and the dataset are printed.
+10. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -733,23 +755,29 @@ def check_file(path: str, magic: bytes, min_bytes: int, tail: bytes = b"") -> in
 
 
 class StageLaunches:
-    """Kernel B's launches inside named calls: each wrapped function adds
-    the caster's launches made during the call to its stage."""
+    """Kernel B's launches and the seconds inside named calls: each wrapped
+    function adds the caster's launches made during the call, and the
+    call's seconds up to a synchronize, to its stage."""
 
     def __init__(self):
-        self.counts, self._undo = {}, []
+        self.counts, self.seconds, self._undo = {}, {}, []
 
     def wrap(self, owner, name: str, stage: str):
         from dreammat_tpu_torch.ops import bvh as bvh_lib
 
         fn = getattr(owner, name)
         self.counts.setdefault(stage, 0)
+        self.seconds.setdefault(stage, 0.0)
 
         def wrapper(*a, **k):
             before = bvh_lib.cast_rays_dense.launches
+            t0 = time.time()
             try:
                 return fn(*a, **k)
             finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds[stage] += time.time() - t0
                 self.counts[stage] += bvh_lib.cast_rays_dense.launches - before
 
         setattr(owner, name, wrapper)
@@ -1037,6 +1065,355 @@ def phase_launch(out_dir: str, clock: float) -> dict:
             "ray_cast": [shadow, texel], "files": sizes}
 
 
+# ---------------------------------------------------------------------------
+# main path 4: DreamMat from a user's own files
+# ---------------------------------------------------------------------------
+
+USER_LIBRARY = {"materials": {"ceramic_torus": "a glazed ceramic ring with thin gold trim"}}
+USER_PERPNEG_SCALE = 1.0
+
+
+def tensor_checksum(t: torch.Tensor) -> float:
+    """A per-tensor checksum that a permutation changes: the float64 sum of
+    the values weighted by 1 + (index mod 7)."""
+    flat = t.detach().reshape(-1).double()
+    return float((flat * (1.0 + torch.arange(flat.numel(), device=flat.device) % 7)).sum())
+
+
+def write_user_weights(root: str, device, size: str, held_dtype, seed: int = 0) -> dict:
+    """Random weights in the diffusers layout, fp16 safetensors through the
+    port's writer: ``unet/`` and ``vae/`` (the VAE's attention under the old
+    names query / key / value / proj_attn, as 1x1 convolutions) and
+    ``text_encoder/`` (with a ``position_ids`` buffer). Returns, per model
+    and key, the checksum of the values as the port holds them (the UNet
+    and the VAE in ``held_dtype``, CLIP in fp32)."""
+    from dreammat_tpu_torch.models.diffusion import convert
+    from dreammat_tpu_torch.models.diffusion.clip_text import CLIPTextConfig, CLIPTextModel
+    from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
+    from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
+    from dreammat_tpu_torch.utils.safetensors_io import save_file
+
+    sd21 = size == "sd21"
+    specs = [
+        ("unet", "diffusion_pytorch_model", held_dtype,
+         lambda: UNet2DCondition(UNetConfig.sd21() if sd21 else UNetConfig.tiny())),
+        ("vae", "diffusion_pytorch_model", held_dtype,
+         lambda: AutoencoderKL(VAEConfig.sd() if sd21 else VAEConfig.tiny())),
+        ("text_encoder", "model", torch.float32,
+         lambda: CLIPTextModel(CLIPTextConfig.sd21() if sd21 else CLIPTextConfig.tiny())),
+    ]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sums, nbytes = {}, 0
+    for sub, fname, held, build in specs:
+        module = convert.random_init_(convert.build_on(build, device, torch.float16), gen)
+        sd = dict(module.state_dict())
+        sums[sub] = {k: tensor_checksum(v.to(held)) for k, v in sd.items()}
+        if sub == "vae":
+            old = {}
+            for k, v in sd.items():
+                for new, legacy in convert._VAE_ALIASES:
+                    if f".{new}." in k:
+                        k, v = k.replace(new, legacy), v[:, :, None, None] if v.dim() == 2 else v
+                old[k] = v
+            sd = old
+        if sub == "text_encoder":
+            n_pos = sd["text_model.embeddings.position_embedding.weight"].shape[0]
+            sd["text_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        save_file(sd, os.path.join(root, sub, f"{fname}.safetensors"))
+        nbytes += sum(v.numel() * v.element_size() for v in sd.values())
+        del module, sd
+    sums["bytes"] = nbytes
+    return sums
+
+
+def write_user_envmaps(root: str, n: int, height: int, width: int, seed: int = 0) -> str:
+    """``n`` RGBE maps ``map{i}/map{i}.hdr``: a sky with a sun of its own
+    per map, times a little texture noise."""
+    from dreammat_tpu_torch.ops.envmap import make_procedural_envmap, write_hdr
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        sun = rng.normal(size=3)
+        sun[2] = abs(sun[2]) + 0.3
+        sky = make_procedural_envmap(height, width, sun_dir=sun, sun_intensity=8.0 + 4.0 * i,
+                                     sky_color=tuple(rng.uniform(0.2, 0.7, 3)))
+        sky = sky * rng.uniform(0.8, 1.2, (height, width, 1)).astype(np.float32)
+        os.makedirs(os.path.join(root, f"map{i + 1}"), exist_ok=True)
+        write_hdr(os.path.join(root, f"map{i + 1}", f"map{i + 1}.hdr"), sky)
+    return root
+
+
+def user_files_argv(work: str, mesh: str, config: str, device: str, views: int,
+                    steps: int) -> list:
+    """``launch_torch.py --train`` on the user's files under ``work``."""
+    return ["--config", config, "--train", "--device", device,
+            f"system.geometry.shape_init=mesh:{mesh}", "system.geometry.shape_init_params=1.0",
+            "system.prompt_processor.prompt=lib:ceramic_torus",
+            f"system.prompt_processor.prompt_library_path={work}/prompt_library.json",
+            f"system.prompt_processor.pretrained_model_cache_dir={work}/model",
+            "system.prompt_processor.use_cache=true",
+            f"system.prompt_processor.cache_dir={work}/text_embeddings",
+            "system.prompt_processor.use_perp_neg=true",
+            f"system.guidance.cache_dir={work}/model", "system.guidance.controlnet_path=null",
+            f"system.guidance.perpneg_scale={USER_PERPNEG_SCALE}",
+            f"system.material.environment_texture={work}/envmap",
+            "system.optimizer.name=Adan",
+            f"data.fix_view_num={views}", f"data.prerender_cache_dir={work}/prerender",
+            "data.n_test_views=1", f"trainer.max_steps={steps}",
+            f"exp_root_dir={work}/runs", "use_timestamp=false"]
+
+
+def drive_user_files(work: str, device: str = "cuda", size: str = "sd21", views: int = 4,
+                     steps: int = 2, env_hw=(256, 512), torus=(192, 96),
+                     datagen_views: int = 4, datagen_res: int = 256) -> dict:
+    """Main path 4 through the user's entry points: write the user's files
+    (SD weights, five HDR maps, the torus as .glb and .ply, a prompt
+    library), run ``launch_torch.py --train`` on them twice in this process
+    (Perp-Neg, Adan, the embedding and the prerender caches; the export is
+    left to main path 3), check the weights the first run holds and the
+    caches the second run hits, then generate a ControlNet dataset from the
+    .glb with ``generate_controlnet_data_torch.py`` and load it through
+    ``ControlNetDataset``. Returns what was measured; raises on a failed
+    check."""
+    import shutil
+
+    import generate_controlnet_data_torch
+    import launch_torch
+    from dreammat_tpu_torch.data import prerender as prerender_lib
+    from dreammat_tpu_torch.data.controlnet_dataset import ControlNetDataset
+    from dreammat_tpu_torch.models import mesh as mesh_lib
+    from dreammat_tpu_torch.models.guidance import StableDiffusionLightGuidance
+    from dreammat_tpu_torch.models.prompt import StableDiffusionPromptProcessor
+    from dreammat_tpu_torch.systems.dreammat import DreamMat
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    config = "configs/dreammat.yaml" if size == "sd21" else "configs/dreammat_tiny.yaml"
+    held = torch.bfloat16 if size == "sd21" else torch.float32  # half_precision_weights
+    shutil.rmtree(work, ignore_errors=True)
+    res = {"seconds": {}}
+    t0 = time.time()
+    sums = write_user_weights(os.path.join(work, "model"), device, size, held)
+    res["seconds"]["write_weights"] = time.time() - t0
+    res["weights_gb"] = sums.pop("bytes") / 1e9
+    write_user_envmaps(os.path.join(work, "envmap"), 5, *env_hw)
+    v, f = mesh_lib.torus_arrays(0.7, 0.28, *torus)
+    glb = mesh_lib.write_glb(os.path.join(work, "meshes", "torus.glb"), v, f)
+    ply = mesh_lib.write_ply(os.path.join(work, "ply", "torus.ply"), v, f)
+    for path in (glb, ply):
+        lv, lf, _, _ = mesh_lib._LOADERS[os.path.splitext(path)[1]](path)
+        if not (np.array_equal(lv, v) and np.array_equal(lf, f)):
+            raise AssertionError(f"{path} does not load back to the torus it holds")
+    m_glb = mesh_lib.load_mesh(glb, 1.0, device="cpu")
+    m_ply = mesh_lib.load_mesh(ply, 1.0, device="cpu")
+    if not (torch.equal(m_glb.v_pos, m_ply.v_pos) and torch.equal(m_glb.t_pos_idx,
+                                                                 m_ply.t_pos_idx)):
+        raise AssertionError("the .glb and the .ply of the torus load to different meshes")
+    with open(os.path.join(work, "prompt_library.json"), "w") as fh:
+        json.dump(USER_LIBRARY, fh)
+    log(f"user files: {res['weights_gb']:.2f} GB of fp16 weights (unet, vae with the old "
+        f"attention names, text_encoder) written in {res['seconds']['write_weights']:.1f}s; 5 "
+        f"HDR maps {env_hw[0]}x{env_hw[1]}; the torus ({len(v)} vertices, {len(f)} triangles) "
+        f"as .glb and .ply, loaded back equal; a prompt library")
+
+    argv = user_files_argv(work, glb, config, device, views, steps)
+    stages = StageLaunches()
+    stages.wrap(StableDiffusionLightGuidance, "init_params", "load_sd_weights")
+    stages.wrap(StableDiffusionPromptProcessor, "__call__", "prompt_embeddings")
+    real_export = DreamMat.export
+    DreamMat.export = lambda self, *a, **k: None  # main path 3 covers the export
+    runs = []
+    try:
+        for r in range(2):
+            for stage in stages.seconds:
+                stages.seconds[stage] = 0.0
+            t0 = time.time()
+            out = launch_torch.main(argv)
+            sync()
+            system, dm = out["system"], out["datamodule"]
+            run = {"seconds": time.time() - t0, "stage_s": dict(stages.seconds),
+                   "prerender_s": dict(dm.data.seconds), "from_cache": dm.data.from_cache,
+                   "prompt_cache_hits": system.prompt_processor.cache_hits,
+                   "step_s": list(system.step_seconds), "losses": list(system.step_losses),
+                   "step_kinds": list(system.step_kinds), "gate": dm.gate.get("decision"),
+                   "step_peak_gb": list(system.step_peak_gb)}
+            if not all(math.isfinite(x) for x in system.step_losses) \
+                    or len(system.step_losses) != steps:
+                raise AssertionError(f"run {r}: losses {system.step_losses}")
+            if system.prompt_processor.prompt != USER_LIBRARY["materials"]["ceramic_torus"]:
+                raise AssertionError(f"lib: prompt resolved to {system.prompt_processor.prompt!r}")
+            if not (system.prompt_utils.use_perp_neg
+                    and type(system.optimizer).__name__ == "Adan"):
+                raise AssertionError("the run did not use Perp-Neg and Adan")
+            envs, mcfg = system.material.envs, system.material.cfg
+            if tuple(envs.shape) != (mcfg.n_environments, mcfg.env_height, mcfg.env_width, 3) \
+                    or not bool(torch.isfinite(envs).all()):
+                raise AssertionError(f"environments {tuple(envs.shape)}")
+            if r == 0:
+                run.update(check_user_weights(system, sums))
+                first_maps = {k: getattr(dm.data, k).clone()
+                              for k in ("lightmaps", "depths", "normals", "table_spec")}
+                if dm.data.from_cache or run["prompt_cache_hits"]:
+                    raise AssertionError("the first run found caches it should have written")
+            else:
+                if not dm.data.from_cache or system.prompt_processor.text_encoder is not None \
+                        or run["prompt_cache_hits"] != 11:
+                    raise AssertionError(f"the second run missed a cache: prerender "
+                                         f"{dm.data.from_cache}, prompt embeddings "
+                                         f"{run['prompt_cache_hits']} of 11")
+                q = prerender_lib.quantize_for_cache(first_maps["lightmaps"],
+                                                     first_maps["depths"], first_maps["normals"])
+                for name, qx, top in zip(("lightmaps", "depths", "normals"), q,
+                                         (255.0, 65535.0, 255.0)):
+                    want = (qx.float() / top).half()
+                    if not torch.equal(getattr(dm.data, name), want):
+                        raise AssertionError(f"cached {name} differ from the first run's")
+                if not torch.equal(dm.data.table_spec, first_maps["table_spec"]):
+                    raise AssertionError("cached specular tables differ from the first run's")
+                res["glb_view"] = (system.renderer, dm.cameras)
+            runs.append(run)
+            log(f"user files: run {r}: launch_torch.py --train in {run['seconds']:.1f}s; "
+                f"loading the SD weights {run['stage_s']['load_sd_weights']:.2f}s, prompt "
+                f"embeddings {run['stage_s']['prompt_embeddings']:.2f}s ({run['prompt_cache_hits']}"
+                f" from the cache); prerender "
+                + ", ".join(f"{k} {x:.3f}s" for k, x in run["prerender_s"].items())
+                + f" ({'from the npz cache' if run['from_cache'] else 'rendered'}); gate: "
+                f"{run['gate']}; steps {', '.join(f'{x:.4f}s' for x in run['step_s'])} "
+                f"({', '.join(run['step_kinds'])}; peak "
+                f"{', '.join(f'{x:.2f} GB' for x in run['step_peak_gb'])}), losses "
+                f"{', '.join(f'{x:.6g}' for x in run['losses'])}")
+            del out, system, dm
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        DreamMat.export = real_export
+        stages.restore()
+    res["runs"] = runs
+
+    t0 = time.time()
+    gen = generate_controlnet_data_torch.main([
+        "--meshes-dir", os.path.dirname(glb), "--out", os.path.join(work, "controlnet_data"),
+        "--views", str(datagen_views), "--envs", "5", "--resolution", str(datagen_res),
+        "--env-dir", os.path.join(work, "envmap"), "--device", device])
+    sync()
+    res["seconds"]["datagen"] = time.time() - t0
+    ds = ControlNetDataset(gen["out"], os.path.join(gen["out"], "prompts.json"),
+                           resolution=datagen_res, env_num=5, view_num=datagen_views)
+    items = [ds[i] for i in range(len(ds))]
+    if len(items) != datagen_views * 5 or any(
+            it.target.shape != (datagen_res, datagen_res, 3)
+            or it.condition.shape != (datagen_res, datagen_res, 22)
+            or not (np.isfinite(it.target).all() and np.isfinite(it.condition).all())
+            for it in items):
+        raise AssertionError("the generated ControlNet dataset has a wrong shape or a "
+                             "non-finite value")
+    fg = float(np.mean([(it.target < 1).any(-1).mean() for it in items]))
+    log(f"user files: ControlNet dataset {datagen_views} views x 5 envs at {datagen_res}^2 from "
+        f"the .glb generated in {res['seconds']['datagen']:.2f}s; {len(items)} items load "
+        f"through ControlNetDataset, finite, object on {100 * fg:.1f}% of the target pixels")
+    res["datagen_items"] = len(items)
+    return res
+
+
+def check_user_weights(system, sums: dict) -> dict:
+    """Every tensor the guidance's UNet and VAE and the prompt processor's
+    CLIP hold equals what was written (after the cast), by checksum, and
+    each load's key count is its model's."""
+    g, pp = system.guidance, system.prompt_processor
+    out = {}
+    for kind, module, report in (("unet", g.unet, g.loaded.get("unet")),
+                                 ("vae", g.vae, g.loaded.get("vae")),
+                                 ("text_encoder", pp.text_encoder, pp.loaded)):
+        if report is None:
+            raise AssertionError(f"{kind}: no checkpoint was loaded")
+        own = module.state_dict()
+        if len(report["loaded"]) != len(own) or report["missing"] or report["unused"]:
+            raise AssertionError(f"{kind}: {len(report['loaded'])} of {len(own)} keys loaded, "
+                                 f"missing {report['missing'][:4]}, unused {report['unused'][:4]}")
+        bad = [k for k, v in own.items() if tensor_checksum(v) != sums[kind][k]]
+        if bad:
+            raise AssertionError(f"{kind}: {len(bad)} tensors differ from the file, e.g. {bad[:4]}")
+        out[f"{kind}_keys"] = len(own)
+    log(f"user files: the guidance holds the written UNet ({out['unet_keys']} tensors) and VAE "
+        f"({out['vae_keys']}, from the old attention names), the prompt processor the written "
+        f"CLIP ({out['text_encoder_keys']}): every key loaded, every checksum equal")
+    return out
+
+
+def phase_user_files(clock: float) -> dict:
+    """Main path 4 on the card (``drive_user_files`` at SD2.1 width, 512^2,
+    4 views, 2 steps), its kernel launches, then kernel A against its
+    plain version at the Perp-Neg batch (B = 5, N = M = 4096, H = 5; times
+    beside SDPA's) and kernel B bit for bit on one 512^2 G-buffer view of
+    the .glb mesh."""
+    import torch.nn.functional as F
+
+    from dreammat_tpu_torch.models.renderer import _views_rays
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    work = os.path.join("outputs", "chip_smoke_user")
+    for fn in (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+               attn.flash_attention_bwd_dkv, bvh_lib.cast_rays_dense):
+        fn.launches = 0
+    res = drive_user_files(work)
+    counts = {"flash_attn_fwd": attn.flash_attention_fwd.launches,
+              "ray_cast": bvh_lib.cast_rays_dense.launches}
+    bwd = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
+    log(f"user files: launches {counts}, attention backward {bwd}")
+    steps = sum(len(r["step_s"]) for r in res["runs"])
+    if counts["flash_attn_fwd"] != 46 * steps or counts["ray_cast"] <= 0 or bwd:
+        raise AssertionError(f"path 4 launches {counts} (kernel A expected {46 * steps}), "
+                             f"backward {bwd}")
+    res["counts"] = counts
+
+    # kernel A at the Perp-Neg batch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, N, H, D = 5, 4096, 5, ATTN_D
+    q, k, v = (torch.randn(B, N, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out, lse = attn.flash_attention_fwd(q, k, v)
+    ref, ref_lse = attn._plain_with_lse(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    a5 = {"B": B, "N": N, "M": N, "H": H, "max_err": err.max().item(),
+          "mean_err": err.mean().item(), "lse_err": (lse - ref_lse).abs().max().item()}
+    if not (a5["max_err"] <= 2e-2 and a5["mean_err"] <= 2e-3 and a5["lse_err"] <= 1e-3):
+        raise AssertionError(f"kernel A at B=5: {a5}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kern = lambda: attn.flash_attention_fwd(q, k, v)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    flops = 4.0 * B * H * N * N * D
+    nbytes = 2.0 * B * H * D * 4 * N + 4.0 * B * H * N
+    a5.update(ms=cuda_ms(kern, 20), lib_ms=cuda_ms(sdpa, 20), graph_ms=graph_ms(kern),
+              lib_graph_ms=graph_ms(sdpa),
+              plain_ms=cuda_ms(lambda: attn._plain_with_lse(q, k, v), 3),
+              bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+              by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes")
+    log(f"attention B=5 N=M=4096 H=5 (Perp-Neg): max|err| {a5['max_err']:.3e} mean "
+        f"{a5['mean_err']:.3e} lse {a5['lse_err']:.3e} | kernel {a5['ms']:.4f} ms (graph "
+        f"{a5['graph_ms']:.4f}), sdpa {a5['lib_ms']:.4f} ms (graph {a5['lib_graph_ms']:.4f}), "
+        f"plain {a5['plain_ms']:.4f} ms, bound {a5['bound_ms']:.4f} ms ({a5['by']})")
+    res["attention_b5"] = a5
+    del q, k, v, out, lse, ref, ref_lse, err
+
+    # kernel B on one G-buffer view of the .glb mesh, every ray against the plain caster
+    ren, cam = res.pop("glb_view")
+    f32 = lambda x: torch.as_tensor(np.asarray(x[:1], np.float32), device="cuda")
+    _, _, ro, rd = _views_rays(f32(cam.elevation_deg), f32(cam.azimuth_deg),
+                               f32(cam.camera_distances), f32(cam.fovy_deg), 512, 512)
+    res["ray_cast_view"] = _cast_case("glb torus G-buffer view 512^2", ren.bvh, ren.tri_data,
+                                      ro.reshape(-1, 3).contiguous(),
+                                      rd.reshape(-1, 3).contiguous(), clock)
+    del ren
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1073,7 +1450,8 @@ def main() -> int:
     counts = {"flash_attn_fwd": None, "ray_cast": None}
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
     l_counts = {"flash_attn_fwd": None, "ray_cast": None}
-    main_res = cn_res = launch_res = None
+    u_counts = {"flash_attn_fwd": None, "ray_cast": None}
+    main_res = cn_res = launch_res = user_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -1082,6 +1460,8 @@ def main() -> int:
         cn_counts = cn_res["counts"]
         launch_res = phase_launch(args.out, cast_res["clock"])
         l_counts = launch_res["counts"]
+        user_res = phase_user_files(cast_res["clock"])
+        u_counts = user_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -1095,7 +1475,11 @@ def main() -> int:
          "launches": counts["flash_attn_fwd"],
          "launches_by_path": {"dreammat": counts["flash_attn_fwd"],
                               "controlnet_training": cn_counts["flash_attn_fwd"],
-                              "dreammat_launch_torus": l_counts["flash_attn_fwd"]},
+                              "dreammat_launch_torus": l_counts["flash_attn_fwd"],
+                              "dreammat_user_files": u_counts["flash_attn_fwd"]},
+         "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
+             "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
+             "lib_graph_ms", "bound_ms", "by")},
          "max_abs_err": max(r["max_err"] for r in attn_res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["by"], "library_ms": a["lib_ms"], "graph_ms": a["graph_ms"],
@@ -1130,10 +1514,12 @@ def main() -> int:
          "launches_by_path": {"dreammat": counts["ray_cast"],
                               "dreammat_launch_torus": l_counts["ray_cast"],
                               "dreammat_launch_torus_by_stage":
-                                  launch_res and launch_res["stage_launches"]},
+                                  launch_res and launch_res["stage_launches"],
+                              "dreammat_user_files": u_counts["ray_cast"]},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff")}
-                     for r in (launch_res["ray_cast"] if launch_res else [])],
+                     for r in ((launch_res["ray_cast"] if launch_res else [])
+                               + ([user_res["ray_cast_view"]] if user_res else []))],
          "max_abs_err": max(r["t_err"] for r in cast_res["rows"]),
          "sm_clock_mhz": b["sm_clock_mhz"],
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
@@ -1144,7 +1530,8 @@ def main() -> int:
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
-                   "launch": launch_res, "card": card}, f, indent=1, default=str)
+                   "launch": launch_res, "user_files": user_res, "card": card}, f, indent=1,
+                  default=str)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

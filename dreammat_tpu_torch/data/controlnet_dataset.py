@@ -1,7 +1,8 @@
-"""ControlNet training dataset (loading).
+"""ControlNet training dataset: loading and generation.
 
-Counterpart of the loading half of ``dreammat_tpu/data/controlnet_dataset.py``
-(``ControlNetExample``, ``ControlNetDataset``). Per item: the 22-channel
+Counterpart of ``dreammat_tpu/data/controlnet_dataset.py``
+(``ControlNetExample``, ``ControlNetDataset``,
+``generate_dataset_for_mesh``). Per item: the 22-channel
 condition (depth 1 + normal 3 + 6 light probes x 3), the target color
 render and the prompt, with the reference's CFG dropout schedule:
 
@@ -17,8 +18,15 @@ two give identical batches. Two layouts: the native npz shard
 ``<root>/<obj>/data.npz`` and the reference's PNG directories
 ``<root>/<obj>/{color,depth,normal,light}/``. The npz loader keeps the arrays
 of the object it read last in memory (the JAX loader re-reads the whole file
-for every item), which changes no result. Dataset generation (rendering
-these files) is not ported yet.
+for every item), which changes no result.
+
+``generate_dataset_for_mesh`` renders one mesh's ``data.npz``: the
+prerender's depth, normal and probe maps of a fixed rig (kernel B casts the
+G-buffers and the visibility bake on the card) and the colour of a
+constant material under every environment, shaded by the Monte-Carlo
+estimator with ``is_train=False`` (no random rotations, so it draws
+nothing) over a white background. ``generate_controlnet_data_torch.py``
+is its command line.
 """
 
 from __future__ import annotations
@@ -26,9 +34,13 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+import dreammat_tpu_torch
+from dreammat_tpu_torch.utils.hw import resolve_device
 
 _PROBE_TAGS = ("m0.0r0.0", "m0.0r0.5", "m0.0r1.0", "m1.0r0.0", "m1.0r0.5", "m1.0r1.0")
 
@@ -140,3 +152,64 @@ class ControlNetDataset:
                     "condition": np.stack([it.condition for it in items]),
                     "prompts": [it.prompt for it in items],
                 }
+
+
+def generate_dataset_for_mesh(
+    mesh_path: str,
+    out_dir: str,
+    material_cfg: Optional[dict] = None,
+    n_views: int = 16,
+    n_envs: int = 5,
+    resolution: int = 256,
+    gt_material: Optional[Tuple[Tuple[float, float, float], float, float]] = None,
+    seed: int = 0,
+    renderer_cfg: Optional[dict] = None,
+    device="cuda",
+) -> str:
+    """Render one mesh's condition maps (depth, normal, six probes under
+    each environment) and colour targets of a constant material
+    (albedo_rgb, metallic, roughness; drawn from ``seed`` when not given)
+    at ``resolution``^2 for ``n_views`` fixed cameras, and write them to
+    ``out_dir/data.npz`` (f16) in the layout ``ControlNetDataset`` reads."""
+    import dreammat_tpu_torch.models  # noqa: F401  (registry)
+    from dreammat_tpu_torch.data import cameras as cam_lib
+    from dreammat_tpu_torch.data import prerender as prerender_lib
+
+    device = resolve_device(device)
+    find = dreammat_tpu_torch.find
+    geo = find("dreammat-mesh")({"shape_init": f"mesh:{mesh_path}", "shape_init_params": 0.9},
+                                device=device)
+    mat = find("dreammat-material")(dict(material_cfg or {}), device=device)
+    ren = find("raytracing-renderer")(dict(renderer_cfg or {}), geo, mat, device=device)
+    cam = cam_lib.make_fixed_cameras(n_views, seed=seed)
+    data = prerender_lib.prerender(ren, mat, cam, resolution, resolution, n_envs,
+                                   cond_height=resolution, cond_width=resolution)
+
+    if gt_material is None:
+        rng = np.random.RandomState(seed)
+        gt_material = (tuple(0.2 + 0.7 * rng.rand(3)), float(rng.rand()),
+                       float(0.2 + 0.7 * rng.rand()))
+    albedo_rgb, metal, rough = gt_material
+    colors = np.zeros((n_views, n_envs, resolution, resolution, 3), dtype=np.float16)
+    for i, gb in enumerate(data.gbuffers):
+        P = gb.fg_pos.shape[0]
+        alb = torch.tensor([albedo_rgb], dtype=torch.float32, device=device).expand(P, 3)
+        met = torch.full((P, 1), float(metal), device=device)
+        rgh = torch.full((P, 1), float(rough) ** 2, device=device)  # squared roughness
+        valid = gb.fg_valid
+        maskf = gb.mask.reshape(-1, 1).float()
+        for e in range(n_envs):
+            with torch.no_grad():
+                out = mat.shade_raytracing(gb.fg_pos, gb.fg_normal, gb.fg_viewdir, e, met, rgh,
+                                           alb, None, is_train=False, mask=valid)
+            img = torch.ones(resolution * resolution, 3, device=device)
+            img[gb.fg_idx[valid]] = out["color"][valid]
+            img = img * maskf + (1 - maskf)  # white background
+            colors[i, e] = img.reshape(resolution, resolution, 3).cpu().numpy().astype(np.float16)
+
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez_compressed(
+        os.path.join(out_dir, "data.npz"), colors=colors,
+        depths=data.depths.cpu().numpy(), normals=data.normals.cpu().numpy(),
+        lightmaps=data.lightmaps.cpu().numpy())
+    return out_dir

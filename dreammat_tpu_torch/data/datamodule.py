@@ -12,8 +12,13 @@ view's light table (none after a drop, and none on every
 ``hybrid_mc_every``-th step) and its pixel table. ``eval_view`` builds one
 view of the eval circle with its light table.
 
-Not ported yet (each raises when asked for): random-camera mode and the
-reference PNG cache. ``static_field_maps`` is accepted; the port has no
+The prerender reads and writes its npz cache under ``prerender_cache_dir``
+(null: no cache); with ``blender_generate`` and a ``reference_cache_dir``,
+the condition maps come from the reference's Blender PNG cache there,
+after the prerender and the gate, as in the JAX package.
+
+Not ported yet (it raises when asked for): random-camera mode.
+``static_field_maps`` is accepted; the port has no
 sort maps (autograd's scatter serves the field backward) but keeps their
 per-view jitter: with ``jitter_resample: "view"`` the jitter points are
 drawn once per view.
@@ -92,8 +97,6 @@ class RandomCameraDataModule(BaseObject):
         if renderer is None or not cfg.use_fix_views:
             raise NotImplementedError(
                 "only the fixed-camera rig with a mesh renderer is ported so far")
-        if cfg.blender_generate and cfg.reference_cache_dir:
-            raise NotImplementedError("the reference PNG cache is not ported yet")
         self.renderer = renderer
         self.material = material
         self.cameras = cam_lib.make_fixed_cameras(
@@ -112,14 +115,21 @@ class RandomCameraDataModule(BaseObject):
 
     def setup(self) -> None:
         cfg = self.cfg
-        if cfg.prerender_cache_dir:
-            dreammat_tpu_torch.info("the prerender npz cache is not ported yet; rendering")
         self.data = prerender_lib.prerender(
             self.renderer, self.material, self.cameras, cfg.height, cfg.width, cfg.fix_env_num,
-            cond_height=cfg.cond_height, cond_width=cfg.cond_width,
-            pixel_budget=cfg.pixel_budget or None,
+            cache_dir=cfg.prerender_cache_dir, cond_height=cfg.cond_height,
+            cond_width=cfg.cond_width, pixel_budget=cfg.pixel_budget or None,
         )
         self.gate = self._fastpath_gate()
+        if cfg.blender_generate and cfg.reference_cache_dir:
+            lm, d, n = prerender_lib.load_reference_png_cache(
+                cfg.reference_cache_dir, cfg.fix_view_num, cfg.fix_env_num,
+                cfg.cond_height, cfg.cond_width)
+            self.data.lightmaps = torch.from_numpy(lm).to(self.device)
+            self.data.depths = torch.from_numpy(d).to(self.device)
+            self.data.normals = torch.from_numpy(n).to(self.device)
+            dreammat_tpu_torch.info("ingested reference Blender cache from %s",
+                                    cfg.reference_cache_dir)
         self._pixel_vis = self._bake_pixel_tables() if cfg.visibility_pixel_tables else None
         if cfg.static_field_maps and self.renderer.cfg.jitter_resample == "view":
             draws = TorchDraws(cfg.seed + 7, self.device)

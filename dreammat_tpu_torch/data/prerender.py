@@ -11,12 +11,23 @@ camera (the eval views). The fast-path gate's two measures compare the
 tables with the exact MC estimator (shadow rays through the renderer's
 ``trace``): ``fastpath_residual`` (relative colour RMSE of one view) and
 ``fastpath_grad_cos`` (cosine of the material gradients on a pixel subset;
-its weights are the named draw ``gate_w``). The npz cache and the
-reference PNG cache are not ported yet.
+its weights are the named draw ``gate_w``).
+
+Two caches, in the JAX package's file formats, so a file written by either
+package loads in the other: the npz prerender cache
+(``<cache_dir>/prerender_<mesh_signature>.npz``: probes and normals as
+uint8, depth as uint16, the specular tables in f16; written from a
+background thread after the arrays are on the host, renamed into place
+when complete, and read back from the next run with the same mesh, rig
+and sizes), and the reference's Blender PNG cache
+(``load_reference_png_cache`` / ``write_reference_png_cache``).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
@@ -48,6 +59,7 @@ class PrerenderData:
     cond_height: int = 256
     cond_width: int = 256
     seconds: Dict[str, float] = field(default_factory=dict)
+    from_cache: bool = False       # probes, maps and tables read from the npz cache
 
 
 def _sync(device) -> None:
@@ -212,13 +224,92 @@ def resize_hw(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(*lead, h, w, C)
 
 
+def mesh_signature(mesh, cam: CameraSet, height: int, width: int, n_envs: int) -> str:
+    """The npz cache's key: the mesh (its first 64 KiB of vertex bytes and
+    its face-index sum), the rig's angles and the sizes."""
+    h = hashlib.md5()
+    h.update(mesh.v_pos.detach().cpu().numpy().astype(np.float32).tobytes()[:65536])
+    h.update(np.int64(mesh.t_pos_idx.sum().item()).tobytes())
+    h.update(cam.elevation_deg.tobytes())
+    h.update(cam.azimuth_deg.tobytes())
+    h.update(np.asarray([height, width, n_envs]).tobytes())
+    return h.hexdigest()[:16]
+
+
+# cache files being written by a background thread, by path: a read of the
+# same path waits for its writer
+_writers: Dict[str, threading.Thread] = {}
+_writers_lock = threading.Lock()
+
+
+def _wait_for_writer(path: str) -> None:
+    with _writers_lock:
+        writer = _writers.pop(path, None)
+    if writer is not None:
+        writer.join()
+
+
+def _load_cache(path: str, device) -> Optional[Dict[str, torch.Tensor]]:
+    """The cached probes, maps and tables, decoded to f16 on ``device``, or
+    None when the file lacks the tables (stale)."""
+    def dec(a, scale):
+        if a.dtype in (np.uint8, np.uint16):
+            a = (a / np.float32(scale)).astype(np.float16)
+        return torch.from_numpy(a).to(device)
+
+    with np.load(path) as z:
+        if "table_spec" not in z:
+            return None
+        return {"lightmaps": dec(z["lightmaps"], 255.0), "depths": dec(z["depths"], 65535.0),
+                "normals": dec(z["normals"], 255.0),
+                "table_spec": torch.from_numpy(z["table_spec"]).to(device)}
+
+
+def quantize_for_cache(lightmaps, depths, normals):
+    """The cache's quantization on the device: sRGB probes and normals to
+    uint8, depth to uint16 (round half up)."""
+    q = lambda x, top, dt: torch.clamp(x.float() * top + 0.5, 0, top).to(dt)
+    return q(lightmaps, 255.0, torch.uint8), q(depths, 65535.0, torch.int32), \
+        q(normals, 255.0, torch.uint8)
+
+
+def _start_cache_write(path: str, data: PrerenderData) -> None:
+    """Quantize on the device, take the arrays to the host, then compress and
+    write them from a background thread (to ``<path>.tmp.npz``, renamed
+    into place when complete)."""
+    lm, d, n = quantize_for_cache(data.lightmaps, data.depths, data.normals)
+    arrays = {"lightmaps": lm.cpu().numpy(), "depths": d.cpu().numpy().astype(np.uint16),
+              "normals": n.cpu().numpy(), "table_spec": data.table_spec.cpu().numpy()}
+
+    def save():
+        t0 = time.time()
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+        dreammat_tpu_torch.info("saved prerender cache %s (%.1fs, background)", path,
+                                time.time() - t0)
+
+    writer = threading.Thread(target=save, name="prerender-cache-save")
+    with _writers_lock:
+        _writers[path] = writer
+    writer.start()
+
+
 def prerender(renderer, material, cam: CameraSet, height: int, width: int, n_envs: int,
-              cond_height: int = 256, cond_width: int = 256,
+              cache_dir: Optional[str] = None, cond_height: int = 256, cond_width: int = 256,
               pixel_budget: Optional[int] = None) -> PrerenderData:
     """All views' G-buffers, the mesh bakes, and the per-view probes and
-    light tables (the reference's Blender prerender of the fixed rig)."""
+    light tables (the reference's Blender prerender of the fixed rig). With
+    ``cache_dir``, the probes, maps and tables come from its npz file for
+    this mesh, rig and size when one exists, and are written to it when
+    not; the G-buffers and the mesh bakes are made either way."""
     dev = renderer.device
     seconds: Dict[str, float] = {}
+    cache_path = None
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        sig = mesh_signature(renderer.mesh, cam, height, width, n_envs)
+        cache_path = os.path.join(cache_dir, f"prerender_{sig}.npz")
     _sync(dev)
     t0 = time.time()
     gbuffers, _ = renderer.build_gbuffers_batched(cam, height, width, pixel_budget=pixel_budget)
@@ -235,6 +326,22 @@ def prerender(renderer, material, cam: CameraSet, height: int, width: int, n_env
     _sync(dev)
     seconds["mesh_bakes"] = time.time() - t0
     dreammat_tpu_torch.info("prerender: mesh-wide bakes in %.2fs", seconds["mesh_bakes"])
+
+    if cache_path:
+        _wait_for_writer(cache_path)
+    if cache_path and os.path.exists(cache_path):
+        t0 = time.time()
+        cached = _load_cache(cache_path, dev)
+        if cached is not None:
+            _sync(dev)
+            seconds["cache_load"] = time.time() - t0
+            dreammat_tpu_torch.info("loaded prerender cache %s in %.2fs", cache_path,
+                                    seconds["cache_load"])
+            return PrerenderData(gbuffers=gbuffers, table_diff=e_d_vertex, lvis=lvis,
+                                 oct_res=oct_res, cond_height=cond_height,
+                                 cond_width=cond_width, seconds=seconds, from_cache=True,
+                                 **cached)
+        dreammat_tpu_torch.info("prerender cache %s is stale; regenerating", cache_path)
 
     t0 = time.time()
     lightmaps, tables, depths, normals = [], [], [], []
@@ -255,6 +362,8 @@ def prerender(renderer, material, cam: CameraSet, height: int, width: int, n_env
     seconds["probes_tables"] = time.time() - t0
     dreammat_tpu_torch.info("prerender: probes+tables for %d views in %.2fs", len(cam),
                             seconds["probes_tables"])
+    if cache_path:
+        _start_cache_write(cache_path, data)
     return data
 
 
@@ -268,3 +377,68 @@ def _inverse_normalize_depth(depth_raw: np.ndarray, min_val: float = 0.3) -> np.
         dmax, dmin = inv[mask].max(), inv[mask].min()
         out[mask] = (1 - min_val) * (inv[mask] - dmin) / (dmax - dmin + 1e-6) + min_val
     return out
+
+
+_PROBE_TAGS = ["m0.0r0.0", "m0.0r0.5", "m0.0r1.0", "m1.0r0.0", "m1.0r0.5", "m1.0r1.0"]
+
+
+def load_reference_png_cache(dir_path: str, n_views: int, n_envs: int,
+                             cond_height: int = 256, cond_width: int = 256):
+    """The reference's Blender PNG cache as numpy f16 (lightmaps [Nv,E,h,w,18],
+    depths [Nv,h,w,1], normals [Nv,h,w,3]): ``depth/{i:03d}.png`` (16-bit
+    depth in mm, inverse-normalized here), ``normal/{i:03d}.png`` and
+    ``light/{i:03d}_m{m}r{r}_env{e}.png``; a missing file leaves zeros."""
+    from PIL import Image
+
+    def loadrgb(p, size):
+        img = Image.open(p).convert("RGB").resize((size[1], size[0]))
+        return np.asarray(img, dtype=np.float32) / 255.0
+
+    lightmaps = np.zeros((n_views, n_envs, cond_height, cond_width, 18), dtype=np.float16)
+    depths = np.zeros((n_views, cond_height, cond_width, 1), dtype=np.float16)
+    normals = np.zeros((n_views, cond_height, cond_width, 3), dtype=np.float16)
+    size = (cond_height, cond_width)
+    for i in range(n_views):
+        dpath = os.path.join(dir_path, "depth", f"{i:03d}.png")
+        npath = os.path.join(dir_path, "normal", f"{i:03d}.png")
+        if os.path.exists(dpath):
+            img = Image.open(dpath).resize((size[1], size[0]), Image.NEAREST)
+            d = np.asarray(img, dtype=np.float32)
+            if d.ndim == 3:
+                d = d[..., 0]
+            depths[i] = _inverse_normalize_depth(d / 1000.0)[..., None]
+        if os.path.exists(npath):
+            normals[i] = loadrgb(npath, size)
+        for e in range(1, n_envs + 1):
+            chans = []
+            for tag in _PROBE_TAGS:
+                p = os.path.join(dir_path, "light", f"{i:03d}_{tag}_env{e}.png")
+                chans.append(loadrgb(p, size) if os.path.exists(p)
+                             else np.zeros((*size, 3), np.float32))
+            lightmaps[i, e - 1] = np.concatenate(chans, axis=-1)
+    return lightmaps, depths, normals
+
+
+def write_reference_png_cache(dir_path: str, lightmaps, depth_raw, normals) -> None:
+    """Condition maps in the reference's Blender PNG cache layout:
+    lightmaps [Nv,E,H,W,18] sRGB in [0,1], depth_raw [Nv,H,W] scene-unit
+    distances (0 = miss) as 16-bit millimetres, normals [Nv,H,W,3] in [0,1]."""
+    from PIL import Image
+
+    lightmaps = np.asarray(lightmaps, dtype=np.float32)
+    depth_raw = np.asarray(depth_raw, dtype=np.float32)
+    normals = np.asarray(normals, dtype=np.float32)
+    for sub in ("depth", "normal", "light"):
+        os.makedirs(os.path.join(dir_path, sub), exist_ok=True)
+    n_views, n_envs = lightmaps.shape[:2]
+    for i in range(n_views):
+        d16 = np.clip(depth_raw[i] * 1000.0 + 0.5, 0, 65535).astype(np.uint16)
+        Image.fromarray(d16).save(os.path.join(dir_path, "depth", f"{i:03d}.png"))
+        n8 = np.clip(normals[i] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        Image.fromarray(n8).save(os.path.join(dir_path, "normal", f"{i:03d}.png"))
+        for e in range(n_envs):
+            for pi, tag in enumerate(_PROBE_TAGS):
+                img = lightmaps[i, e, :, :, 3 * pi:3 * pi + 3]
+                u8 = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                Image.fromarray(u8).save(
+                    os.path.join(dir_path, "light", f"{i:03d}_{tag}_env{e + 1}.png"))

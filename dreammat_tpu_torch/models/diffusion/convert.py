@@ -9,7 +9,10 @@ arrays, so no JAX is needed to run it. Covers ``unet``, ``controlnet``,
 ``vae`` and ``clip``; ``controlnet_trainer_state_from_flax`` carries the JAX
 ControlNet trainer's whole parameter tree across. Also holds the random
 initialization the port uses when no checkpoint is present, the checkpoint
-file lookup and reader for diffusers-layout weights, and
+file lookup and reader for diffusers-layout weights, the loader of such a
+checkpoint into a port module (``load_diffusers_weights``, the torch ->
+flax direction's fallbacks: old VAE attention names, CLIP's bare
+``position_embedding``, skipped ``position_ids`` buffers), and
 ``geometry_params_from_numpy`` for the material field.
 """
 
@@ -22,6 +25,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+import dreammat_tpu_torch
 
 
 def _walk(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -123,6 +128,80 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return sd
+
+
+# older diffusers exports name the VAE attention projections differently
+# (current name part, old name part)
+_VAE_ALIASES = (("to_q", "query"), ("to_k", "key"), ("to_v", "value"),
+                ("to_out.0", "proj_attn"))
+# buffers that exports may hold and that are not parameters of the model
+_KNOWN_BUFFERS = ("position_ids",)
+
+
+def _lookup(sd: Mapping[str, torch.Tensor], key: str) -> Optional[str]:
+    """The checkpoint key that holds the model's ``key``: the key itself, its
+    old VAE attention name, or CLIP's position embedding without ``.weight``."""
+    if key in sd:
+        return key
+    for new, old in _VAE_ALIASES:
+        if new in key and key.replace(new, old) in sd:
+            return key.replace(new, old)
+    if key.endswith("position_embedding.weight") and key[: -len(".weight")] in sd:
+        return key[: -len(".weight")]
+    return None
+
+
+@torch.no_grad()
+def load_diffusers_weights(module: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                           model_type: str, strict: bool = False,
+                           source: str = "state dict") -> Dict[str, list]:
+    """Copy a diffusers / transformers state dict into ``module`` in place,
+    cast to each parameter's dtype and device. Returns the model keys
+    ``loaded`` and ``missing`` and the checkpoint keys left ``unused`` (known
+    buffers aside), and logs their counts. A shape mismatch raises; old VAE
+    attention weights stored as 1x1 convolutions [C, C, 1, 1] load into the
+    port's [C, C]. With ``strict`` a missing or unused key raises; without
+    it, a checkpoint that loads no key at all still raises."""
+    own = module.state_dict()
+    loaded, missing, used = [], [], set()
+    for key, dst in own.items():
+        src = _lookup(state_dict, key)
+        if src is None:
+            missing.append(key)
+            continue
+        val = state_dict[src]
+        if val.dim() == 4 and dst.dim() == 2 and tuple(val.shape[2:]) == (1, 1):
+            val = val.reshape(val.shape[:2])
+        if tuple(val.shape) != tuple(dst.shape):
+            raise ValueError(f"{model_type} {key}: checkpoint shape {tuple(val.shape)}, "
+                             f"model shape {tuple(dst.shape)}")
+        dst.copy_(val.to(device=dst.device, dtype=dst.dtype))
+        loaded.append(key)
+        used.add(src)
+    unused = sorted(k for k in state_dict
+                    if k not in used and not any(b in k for b in _KNOWN_BUFFERS))
+    dreammat_tpu_torch.info("%s weights from %s: %d of %d keys loaded, %d missing, %d unused",
+                            model_type, source, len(loaded), len(own), len(missing), len(unused))
+    if not loaded:
+        raise ValueError(f"{source}: no key matches the {model_type} model "
+                         f"(checkpoint keys such as {sorted(state_dict)[:4]})")
+    if strict and (missing or unused):
+        raise KeyError(f"{model_type}: {len(missing)} missing keys, e.g. {missing[:8]}; "
+                       f"{len(unused)} unused, e.g. {unused[:8]}")
+    return {"loaded": loaded, "missing": missing, "unused": unused}
+
+
+def load_model_dir(module: nn.Module, model_dir: Optional[str],
+                   model_type: str) -> Optional[Dict[str, list]]:
+    """Load the checkpoint file of ``model_dir`` (``find_checkpoint_file``)
+    into ``module`` through ``load_diffusers_weights``; None, and ``module``
+    unchanged, when the directory or its file does not exist."""
+    if not model_dir or not os.path.isdir(str(model_dir)):
+        return None
+    ckpt = find_checkpoint_file(str(model_dir))
+    if ckpt is None:
+        return None
+    return load_diffusers_weights(module, load_state_dict_file(ckpt), model_type, source=ckpt)
 
 
 def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -1,22 +1,29 @@
 """Score-distillation guidance: SD 2.1 + the 22-channel light ControlNet.
 
-Counterpart of ``dreammat_tpu/models/guidance.py`` (non-Perp-Neg branch):
+Counterpart of ``dreammat_tpu/models/guidance.py``:
 
     grad = w(t) (cond_scale eps_text + uncond_scale eps_uncond
-                 + null_scale eps_null + noise_scale noise)
+                 + null_scale eps_null + noise_scale noise
+                 + perpneg_scale eps_perpneg)
     loss = 0.5 ||latents - stopgrad(latents - grad)||^2 / B
 
 with step-scheduled scales, the scheduled timestep window, the ControlNet
-condition-scale anneal, and the three CFG replicas (text, uncond, null) in
-one batched ControlNet + UNet pass under ``torch.no_grad()`` (the JAX
-stop-gradient). The condition stack stays batch 1, so the ControlNet's
-image-resolution stem runs once for the three replicas.
+condition-scale anneal, and the CFG replicas in one batched ControlNet +
+UNet pass under ``torch.no_grad()`` (the JAX stop-gradient): three (text,
+uncond, null), or with Perp-Neg five (text, uncond, two interpolated
+negatives interleaved per sample, null), where ``eps_perpneg`` sums the
+negatives' components perpendicular to ``eps_text - eps_uncond``, weighted
+per view. The condition stack stays batch 1, so the ControlNet's
+image-resolution stem runs once for all replicas.
 
-Weights are random-initialized, except that a trained ControlNet in the
-diffusers layout (``diffusion_pytorch_model.safetensors``, as
-``ControlNetTrainer.export_diffusers`` writes it) under ``controlnet_path``
-is loaded strictly into the first ControlNet, as the JAX guidance does;
-``half_precision_weights`` stores them in bf16.
+Weights: random-initialized, then the UNet and the VAE are loaded from
+``cache_dir/{unet,vae}`` (diffusers layout, ``strict=False`` through
+``convert.load_diffusers_weights``, which logs the keys loaded, missing and
+unused) and a trained ControlNet from ``controlnet_path``
+(``diffusion_pytorch_model.safetensors``, as
+``ControlNetTrainer.export_diffusers`` writes it), strictly, into the
+first ControlNet, where those exist; ``half_precision_weights`` stores them
+in bf16.
 """
 
 from __future__ import annotations
@@ -31,13 +38,14 @@ import torch.nn.functional as F
 import dreammat_tpu_torch
 from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNetConfig
 from dreammat_tpu_torch.models.diffusion.convert import (
-    build_on, find_checkpoint_file, load_state_dict_file, random_init_,
+    build_on, find_checkpoint_file, load_model_dir, load_state_dict_file, random_init_,
 )
 from dreammat_tpu_torch.models.diffusion.scheduler import SchedulerConfig, add_noise, make_schedule
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.hw import resolve_device
+from dreammat_tpu_torch.utils.ops import perpendicular_component
 from dreammat_tpu_torch.utils.schedule import C
 
 
@@ -99,7 +107,9 @@ class StableDiffusionLightGuidance(BaseObject):
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
         """Random-initialize the frozen UNet, VAE and ControlNets on the device,
-        then load a trained ControlNet from ``controlnet_path`` if it holds one."""
+        then load the UNet and the VAE from ``cache_dir/{unet,vae}`` and a
+        trained ControlNet from ``controlnet_path`` where they hold one.
+        ``self.loaded`` keeps each load's report (``load_diffusers_weights``)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
@@ -110,6 +120,12 @@ class StableDiffusionLightGuidance(BaseObject):
         self.unet = make(lambda: UNet2DCondition(self.unet_cfg))
         self.vae = make(lambda: AutoencoderKL(self.vae_cfg))
         self.controlnets = [make(lambda c=c: ControlNet(c)) for c in self.controlnet_cfgs]
+        self.loaded = {}
+        if self.cfg.cache_dir:
+            for name, module in (("unet", self.unet), ("vae", self.vae)):
+                report = load_model_dir(module, os.path.join(str(self.cfg.cache_dir), name), name)
+                if report is not None:
+                    self.loaded[name] = report
         path = self.cfg.controlnet_path
         if self.controlnets and path and os.path.isdir(str(path)):
             ckpt = find_checkpoint_file(str(path))
@@ -180,8 +196,6 @@ class StableDiffusionLightGuidance(BaseObject):
         """rgb [B,3,H,W] in [0,1]; condition_map [B,22,h,w]. The VAE posterior
         eps, the timestep and the latent noise come from ``draws``."""
         cfg = self.cfg
-        if prompt_utils.use_perp_neg:
-            raise NotImplementedError("Perp-Neg is not ported yet")
         B = rgb.shape[0]
         f = self.vae_factor
         lat_shape = (B, self.vae_cfg.latent_channels, rgb.shape[2] // f, rgb.shape[3] // f)
@@ -198,16 +212,35 @@ class StableDiffusionLightGuidance(BaseObject):
 
         scales = self.condition_scales_at(step) if cfg.use_controlnet else []
         image_cond = self._image_conditions(condition_map) if cfg.use_controlnet else None
-        text_embeddings = prompt_utils.get_text_embeddings(
-            elevation, azimuth, camera_distances,
-            view_dependent_prompting=cfg.view_dependent_prompting)
-        with torch.no_grad():
-            eps = self.noise_pred(latents_noisy.detach(), t, text_embeddings, image_cond, scales, 3)
-        eps_text, eps_uncond, eps_null = eps.chunk(3, dim=0)
+        eps_perpneg = None
+        if prompt_utils.use_perp_neg:
+            text_embeddings, neg_w = prompt_utils.get_text_embeddings_perp_neg(
+                elevation, azimuth, camera_distances)
+            with torch.no_grad():
+                eps = self.noise_pred(latents_noisy.detach(), t, text_embeddings, image_cond,
+                                      scales, 5)
+            eps_text, eps_uncond = eps[:B], eps[B:2 * B]
+            eps_neg, eps_null = eps[2 * B:4 * B], eps[4 * B:]
+            e_pos = eps_text - eps_uncond
+            eps_perpneg = torch.zeros_like(e_pos)
+            for i in range(2):
+                # the negatives are interleaved per sample: [n0(b0), n1(b0), n0(b1), ...]
+                eps_perpneg = eps_perpneg + neg_w[:, i].reshape(-1, 1, 1, 1) * \
+                    perpendicular_component(eps_neg[i::2] - eps_uncond, e_pos)
+        else:
+            text_embeddings = prompt_utils.get_text_embeddings(
+                elevation, azimuth, camera_distances,
+                view_dependent_prompting=cfg.view_dependent_prompting)
+            with torch.no_grad():
+                eps = self.noise_pred(latents_noisy.detach(), t, text_embeddings, image_cond,
+                                      scales, 3)
+            eps_text, eps_uncond, eps_null = eps.chunk(3, dim=0)
 
         w = (1.0 - self.schedule["alphas_cumprod"][t]).reshape(-1, 1, 1, 1)
         grad = w * (C(cfg.cond_scale, step) * eps_text + C(cfg.uncond_scale, step) * eps_uncond
                     + C(cfg.null_scale, step) * eps_null + C(cfg.noise_scale, step) * noise)
+        if eps_perpneg is not None:
+            grad = grad + w * C(cfg.perpneg_scale, step) * eps_perpneg
         grad = torch.nan_to_num(grad)
         if cfg.grad_clip_val is not None:
             grad = torch.clamp(grad, -cfg.grad_clip_val, cfg.grad_clip_val)

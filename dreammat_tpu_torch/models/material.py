@@ -15,7 +15,11 @@ in this order, a per-pixel table, the per-vertex table, the ray tracer
 
 The random azimuths are two named draws, ``mc_rot_diffuse`` and
 ``mc_rot_specular`` (uniform [P,1] each), taken from the ``draws`` object
-(``utils/rng.py``) before any direction is formed.
+(``utils/rng.py``) before any direction is formed. The environments are
+``map{i}/map{i}.exr`` or ``.hdr`` under ``environment_texture`` (an
+``.exr`` needs OpenCV), each the procedural sky of its index only where
+neither file exists, resized to ``env_height`` x ``env_width`` and scaled
+by ``environment_scale``.
 """
 
 from __future__ import annotations
@@ -127,16 +131,20 @@ class DreamMatMaterial(BaseObject):
         envs = []
         for i in range(cfg.n_environments):
             idx = str(i + 1)
+            sky = None
             for ext in (".exr", ".hdr"):
-                if os.path.exists(os.path.join(cfg.environment_texture, f"map{idx}", f"map{idx}{ext}")):
-                    raise NotImplementedError(
-                        "HDR environment files: only the procedural skies are ported so far")
-            sky = envmap_lib.make_procedural_envmap(
-                cfg.env_height, cfg.env_width,
-                sun_dir=np.array([np.cos(i * 2.2), np.sin(i * 2.2), 0.6 + 0.1 * (i % 3)]),
-                sun_intensity=10.0 + 5.0 * i, seed=i,
-            )
-            sky = envmap_lib.resize_envmap(torch.as_tensor(sky), cfg.env_height, cfg.env_width)
+                path = os.path.join(cfg.environment_texture, f"map{idx}", f"map{idx}{ext}")
+                if os.path.exists(path):
+                    sky = envmap_lib.load_envmap_file(path)
+                    break
+            if sky is None:  # no file: the procedural sky of this index
+                sky = envmap_lib.make_procedural_envmap(
+                    cfg.env_height, cfg.env_width,
+                    sun_dir=np.array([np.cos(i * 2.2), np.sin(i * 2.2), 0.6 + 0.1 * (i % 3)]),
+                    sun_intensity=10.0 + 5.0 * i, seed=i,
+                )
+            sky = envmap_lib.resize_envmap(torch.as_tensor(np.asarray(sky, np.float32)),
+                                           cfg.env_height, cfg.env_width)
             envs.append(sky * cfg.environment_scale)
         self.envs = torch.stack(envs).to(self.device)  # [E,H,W,3]
         self.diffuse_dir_samples = torch.as_tensor(_fibonacci_unit(cfg.diffuse_sample_num),

@@ -1,18 +1,21 @@
 """Triangle mesh type and host-side construction.
 
-Counterpart of ``dreammat_tpu/models/mesh.py`` for the ported path: the OBJ
-loader with the reference's normalization, area-weighted vertex normals,
+Counterpart of ``dreammat_tpu/models/mesh.py`` for the ported path: the
+OBJ, PLY (ascii and binary) and binary glTF (.glb) loaders, numpy only,
+with the reference's normalization, area-weighted vertex normals,
 ``fix_winding_outward``, the procedural icosphere, and the torus of
 ``tools/quantify_fastpath.py`` (a self-occluding test shape) with
-``write_obj`` to hand it to the OBJ loader. Meshes are built with
-numpy on the host and held as tensors on one device. The PLY and glb
-loaders are not ported yet.
+writers (``write_obj``, ``write_glb``, ``write_ply``) to hand it to the
+loaders. Meshes are built with
+numpy on the host and held as tensors on one device.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import struct
 from dataclasses import dataclass
 from typing import Optional
 
@@ -47,6 +50,147 @@ def load_obj(path: str):
     vt = np.asarray(uvs, dtype=np.float32) if uvs else None
     ft = np.asarray(faces_uv, dtype=np.int32) if uvs else None
     return v, f, vt, ft
+
+
+def load_ply(path: str):
+    """PLY reader (ascii, binary little and big endian): vertex positions and
+    fan-triangulated faces (binary faces: a uchar count and int32 indices)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.find(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode("ascii", errors="ignore").splitlines()
+    fmt = "ascii"
+    nv = nf = 0
+    vert_props = []
+    reading = None
+    for line in header:
+        t = line.split()
+        if not t:
+            continue
+        if t[0] == "format":
+            fmt = t[1]
+        elif t[0] == "element":
+            reading = t[1]
+            if t[1] == "vertex":
+                nv = int(t[2])
+            elif t[1] == "face":
+                nf = int(t[2])
+        elif t[0] == "property" and reading == "vertex":
+            vert_props.append((t[-1], t[1]))
+    names = [p[0] for p in vert_props]
+    if fmt == "ascii":
+        body = data[header_end:].decode("ascii").split()
+        pos = 0
+        verts = np.zeros((nv, 3), dtype=np.float32)
+        stride = len(vert_props)
+        xi, yi, zi = names.index("x"), names.index("y"), names.index("z")
+        for i in range(nv):
+            row = body[pos:pos + stride]
+            verts[i] = [float(row[xi]), float(row[yi]), float(row[zi])]
+            pos += stride
+        faces = []
+        while pos < len(body):
+            n = int(body[pos])
+            idx = [int(x) for x in body[pos + 1:pos + 1 + n]]
+            for k in range(1, n - 1):
+                faces.append([idx[0], idx[k], idx[k + 1]])
+            pos += n + 1
+        return verts, np.asarray(faces, dtype=np.int32), None, None
+    sizes = {"float": 4, "float32": 4, "double": 8, "uchar": 1, "uint8": 1,
+             "int": 4, "int32": 4, "uint": 4, "uint32": 4, "short": 2, "ushort": 2}
+    endian = "<" if "little" in fmt else ">"
+    off = header_end
+    stride = sum(sizes[p[1]] for p in vert_props)
+    verts = np.zeros((nv, 3), dtype=np.float32)
+    offs = {}
+    o = 0
+    for nme, typ in vert_props:
+        offs[nme] = (o, typ)
+        o += sizes[typ]
+    for i in range(nv):
+        base = off + i * stride
+        vals = []
+        for axis in ("x", "y", "z"):
+            ao, typ = offs[axis]
+            fmtc = {"float": "f", "float32": "f", "double": "d"}[typ]
+            vals.append(struct.unpack_from(endian + fmtc, data, base + ao)[0])
+        verts[i] = vals
+    off += nv * stride
+    faces = []
+    while off < len(data) and len(faces) < nf * 2:
+        n = struct.unpack_from(endian + "B", data, off)[0]
+        off += 1
+        idx = struct.unpack_from(endian + f"{n}i", data, off)
+        off += 4 * n
+        for k in range(1, n - 1):
+            faces.append([idx[0], idx[k], idx[k + 1]])
+    return verts, np.asarray(faces, dtype=np.int32), None, None
+
+
+def load_glb(path: str):
+    """Binary glTF (.glb) reader: POSITION, indices (u8, u16 or u32; none
+    means consecutive triangles) and TEXCOORD_0 of every primitive of every
+    mesh, concatenated; accessors with a byte stride are read row by row."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, _version, length = struct.unpack_from("<III", data, 0)
+    if magic != 0x46546C67:
+        raise ValueError(f"{path}: not a glb file")
+    off = 12
+    js = None
+    binbuf = b""
+    while off < length:
+        clen, ctype = struct.unpack_from("<II", data, off)
+        off += 8
+        chunk = data[off:off + clen]
+        off += clen
+        if ctype == 0x4E4F534A:  # JSON
+            js = json.loads(chunk.decode("utf-8"))
+        elif ctype == 0x004E4942:  # BIN
+            binbuf = chunk
+    if js is None:
+        raise ValueError(f"{path}: no JSON chunk")
+
+    def read_accessor(idx):
+        acc = js["accessors"][idx]
+        bv = js["bufferViews"][acc["bufferView"]]
+        comp = {5120: np.int8, 5121: np.uint8, 5122: np.int16,
+                5123: np.uint16, 5125: np.uint32, 5126: np.float32}[acc["componentType"]]
+        ncomp = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4}[acc["type"]]
+        start = bv.get("byteOffset", 0) + acc.get("byteOffset", 0)
+        count = acc["count"]
+        itemsize = np.dtype(comp).itemsize * ncomp
+        stride = bv.get("byteStride", itemsize)
+        if stride == itemsize:
+            arr = np.frombuffer(binbuf, dtype=comp, count=count * ncomp, offset=start)
+        else:
+            arr = np.concatenate([
+                np.frombuffer(binbuf, dtype=comp, count=ncomp, offset=start + i * stride)
+                for i in range(count)])
+        return arr.reshape(count, ncomp) if ncomp > 1 else arr
+
+    all_v, all_f, all_vt = [], [], []
+    base = 0
+    for mesh in js.get("meshes", []):
+        for prim in mesh.get("primitives", []):
+            v = read_accessor(prim["attributes"]["POSITION"]).astype(np.float32)
+            if "indices" in prim:
+                f_idx = read_accessor(prim["indices"]).astype(np.int64).reshape(-1, 3)
+            else:
+                f_idx = np.arange(len(v), dtype=np.int64).reshape(-1, 3)
+            all_v.append(v)
+            all_f.append(f_idx + base)
+            if "TEXCOORD_0" in prim["attributes"]:
+                all_vt.append(read_accessor(prim["attributes"]["TEXCOORD_0"]).astype(np.float32))
+            base += len(v)
+    v = np.concatenate(all_v, 0)
+    f = np.concatenate(all_f, 0).astype(np.int32)
+    vt = np.concatenate(all_vt, 0) if len(all_vt) == len(all_v) and all_vt else None
+    ft = f if vt is not None and len(vt) == len(v) else None
+    return v, f, vt, ft
+
+
+_LOADERS = {".obj": load_obj, ".ply": load_ply, ".glb": load_glb, ".gltf": load_glb}
 
 
 def compute_vertex_normals(v: np.ndarray, f: np.ndarray) -> np.ndarray:
@@ -90,13 +234,13 @@ _DIR2VEC = {
 
 def load_mesh(path: str, scale: Optional[float] = None, mesh_up: str = "+z",
               mesh_front: str = "+x", device="cuda") -> Mesh:
-    """Load and normalize an OBJ: center at the vertex centroid, rotate so
-    ``mesh_up``/``mesh_front`` map to +z/+x, scale the max |coord| to
-    ``scale``, and make the winding point outward."""
+    """Load (.obj, .ply, .glb) and normalize a mesh: center at the vertex
+    centroid, rotate so ``mesh_up``/``mesh_front`` map to +z/+x, scale the
+    max |coord| to ``scale``, and make the winding point outward."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".obj":
-        raise NotImplementedError(f"{ext} meshes: only the OBJ loader is ported so far")
-    v, f, vt, ft = load_obj(path)
+    if ext not in _LOADERS:
+        raise ValueError(f"unsupported mesh format {ext}")
+    v, f, vt, ft = _LOADERS[ext](path)
     v = v - v.mean(axis=0, keepdims=True)
     if scale is not None:
         z_ = _DIR2VEC[mesh_up].astype(np.float64)
@@ -181,6 +325,44 @@ def write_obj(path: str, v: np.ndarray, f: np.ndarray) -> str:
     with open(path, "w") as fh:
         fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
         fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+    return path
+
+
+def write_glb(path: str, v: np.ndarray, f: np.ndarray) -> str:
+    """A binary glTF (.glb) of one mesh primitive: float32 POSITION and
+    uint16 indices (uint32 past 65,535 vertices)."""
+    v = np.ascontiguousarray(v, dtype=np.float32)
+    idx = np.asarray(f).astype(np.uint16 if len(v) <= 65535 else np.uint32).reshape(-1)
+    vb, ib = v.tobytes(), idx.tobytes() + b"\0" * (-idx.nbytes % 4)
+    js = {"asset": {"version": "2.0"}, "buffers": [{"byteLength": len(vb) + len(ib)}],
+          "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": len(vb)},
+                          {"buffer": 0, "byteOffset": len(vb), "byteLength": idx.nbytes}],
+          "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(v),
+                         "type": "VEC3", "min": v.min(0).tolist(), "max": v.max(0).tolist()},
+                        {"bufferView": 1, "componentType": 5123 if idx.dtype == np.uint16
+                         else 5125, "count": idx.size, "type": "SCALAR"}],
+          "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1}]}]}
+    jb = json.dumps(js).encode()
+    jb += b" " * (-len(jb) % 4)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<III", 0x46546C67, 2, 28 + len(jb) + len(vb) + len(ib)))
+        fh.write(struct.pack("<II", len(jb), 0x4E4F534A) + jb)
+        fh.write(struct.pack("<II", len(vb) + len(ib), 0x004E4942) + vb + ib)
+    return path
+
+
+def write_ply(path: str, v: np.ndarray, f: np.ndarray) -> str:
+    """A binary little-endian PLY: float x, y, z and int32 triangles."""
+    v = np.ascontiguousarray(v, dtype="<f4")
+    faces = np.empty(len(f), dtype=[("n", "u1"), ("idx", "<i4", (3,))])
+    faces["n"], faces["idx"] = 3, f
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(f)}\nproperty list uchar int vertex_indices\nend_header\n")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(head.encode("ascii") + v.tobytes() + faces.tobytes())
     return path
 
 

@@ -1,7 +1,10 @@
-"""Environment lighting: procedural skies, equirect lookup, the FG LUT.
+"""Environment lighting: HDR files, procedural skies, equirect lookup, the FG LUT.
 
 Counterpart of the parts of ``dreammat_tpu/ops/envmap.py`` the tables regime
-uses: ``make_procedural_envmap`` (numpy, used when no HDR asset exists),
+uses: the Radiance RGBE reader and writer (``read_hdr``, ``write_hdr``,
+numpy) and ``load_envmap_file`` (``.hdr``, or ``.exr`` through OpenCV when
+it is installed: without it an ``.exr`` raises),
+``make_procedural_envmap`` (numpy, used when no HDR file exists),
 ``resize_envmap``, equirect sampling with z as the polar axis (nearest, as
 the Monte-Carlo estimators read the environment, and bilinear), and the
 computed Karis split-sum LUT (``compute_fg_lut`` / ``sample_fg_lut``).
@@ -10,6 +13,7 @@ computed Karis split-sum LUT (``compute_fg_lut`` / ``sample_fg_lut``).
 from __future__ import annotations
 
 import math
+import os
 from typing import Tuple
 
 import numpy as np
@@ -18,6 +22,88 @@ import torch.nn.functional as F
 
 from dreammat_tpu_torch.utils import ops as uops
 from dreammat_tpu_torch.utils.hw import resolve_device
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """Radiance RGBE (.hdr) file -> float32 [H,W,3]: flat or new-style
+    run-length scanlines, ``-Y H +X W`` orientation."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"{path}: not a radiance HDR file")
+    pos = data.find(b"\n\n")
+    if pos < 0:
+        raise ValueError(f"{path}: bad hdr header")
+    pos += 2
+    eol = data.find(b"\n", pos)
+    res = data[pos:eol].decode("ascii").split()
+    if res[0] != "-Y" or res[2] != "+X":
+        raise ValueError(f"{path}: unsupported orientation {res}")
+    H, W = int(res[1]), int(res[3])
+    img = np.zeros((H, W, 4), dtype=np.uint8)
+    buf = np.frombuffer(data, dtype=np.uint8, offset=eol + 1)
+    bp = 0
+    for y in range(H):
+        if buf[bp] == 2 and buf[bp + 1] == 2 and (int(buf[bp + 2]) << 8 | int(buf[bp + 3])) == W:
+            bp += 4  # new-style RLE, channel by channel
+            for c in range(4):
+                x = 0
+                while x < W:
+                    n = int(buf[bp])
+                    bp += 1
+                    if n > 128:  # a run
+                        img[y, x:x + n - 128, c] = buf[bp]
+                        bp += 1
+                        x += n - 128
+                    else:  # literals
+                        img[y, x:x + n, c] = buf[bp:bp + n]
+                        bp += n
+                        x += n
+        else:  # a flat scanline
+            img[y] = buf[bp:bp + W * 4].reshape(W, 4)
+            bp += W * 4
+    rgbe = img.astype(np.float32)
+    e = rgbe[..., 3]
+    scale = np.where(e > 0, np.ldexp(1.0, e.astype(np.int32) - 136), 0.0)
+    return (rgbe[..., :3] + 0.5) * scale[..., None] * np.where(e > 0, 1.0, 0.0)[..., None]
+
+
+def write_hdr(path: str, img: np.ndarray) -> None:
+    """float32 [H,W,3] -> uncompressed Radiance RGBE file."""
+    H, W, _ = img.shape
+    rgb = np.maximum(img, 0.0)
+    maxc = rgb.max(axis=-1)
+    e = np.zeros((H, W), dtype=np.int32)
+    nz = maxc > 1e-32
+    e[nz] = np.ceil(np.log2(maxc[nz])).astype(np.int32) + 1
+    scale = np.ldexp(1.0, -e) * 256.0
+    mant = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe = np.concatenate([mant, (e + 128)[..., None].astype(np.uint8)], axis=-1)
+    rgbe[~nz] = 0
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {H} +X {W}\n".encode("ascii"))
+        f.write(rgbe.tobytes())
+
+
+def load_envmap_file(path: str) -> np.ndarray:
+    """An environment map file as float32 [H,W,3] linear RGB."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".hdr":
+        return read_hdr(path)
+    if ext == ".exr":
+        os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+        try:
+            import cv2
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path}: reading .exr environment maps needs OpenCV (cv2), which is not "
+                "installed; convert the map to .hdr (ops.envmap.write_hdr) or install it") from e
+        img = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        if img is None:
+            raise ValueError(f"cv2 failed to read {path}")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32)
+    raise ValueError(f"unsupported envmap format {ext}")
 
 
 def make_procedural_envmap(height: int = 256, width: int = 512, sun_dir=(0.5, 0.5, 0.7),

@@ -157,14 +157,10 @@ class ControlNetTrainer(BaseObject):
         for m in (self.unet, self.vae, self.clip, self.controlnet):
             convert.random_init_(m, generator)
         zero_controlnet_outputs_(self.controlnet)
-        if cfg.sd_cache_dir and os.path.isdir(cfg.sd_cache_dir):
-            for sub, module in (("unet", self.unet), ("vae", self.vae),
-                                ("text_encoder", self.clip)):
-                d = os.path.join(cfg.sd_cache_dir, sub)
-                ckpt = convert.find_checkpoint_file(d) if os.path.isdir(d) else None
-                if ckpt:
-                    module.load_state_dict(convert.load_state_dict_file(ckpt), strict=False)
-                    dreammat_tpu_torch.info("loaded %s from %s", sub, ckpt)
+        if cfg.sd_cache_dir:
+            for sub, module, kind in (("unet", self.unet, "unet"), ("vae", self.vae, "vae"),
+                                      ("text_encoder", self.clip, "clip")):
+                convert.load_model_dir(module, os.path.join(cfg.sd_cache_dir, sub), kind)
         controlnet_from_unet(self.controlnet, self.unet)
 
     def load_state_dicts(self, sds: Mapping[str, Mapping[str, torch.Tensor]]) -> None:

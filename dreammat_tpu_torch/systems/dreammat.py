@@ -5,18 +5,20 @@ Counterpart of ``dreammat_tpu/systems/dreammat.py`` (``configure``,
 ``save_train_grid``, ``validation``, ``test``, ``export``). The train step
 is: field query -> shade (the prefiltered tables, or the MC estimator when
 the batch has no table) -> VAE encode (differentiated) -> 3x (ControlNet +
-UNet) under no_grad -> CSD loss -> ``backward`` -> ``Adam.step``. ``fit``
-logs to the console and to ``<trial_dir>/logs/metrics.csv``, saves the
-train grid every ``save_train_image_iter`` steps, a validation grid every
+UNet; 5x with Perp-Neg) under no_grad -> CSD loss -> ``backward`` -> the
+optimizer's step (``systems/optimizers.py``). ``fit`` logs to the console,
+to ``<trial_dir>/logs/metrics.csv`` (one file per fit), to
+``logs/events.tsv``, to a TensorBoard event file under ``tb/`` and to
+wandb when ``loggers.wandb.enable`` is set and the package is installed,
+and writes the progress file ``progress``; it saves the train grid every
+``save_train_image_iter`` steps, a validation grid every
 ``val_check_interval`` and a checkpoint (``utils/ckpt.py``) every
 ``checkpoint_every``. ``test`` renders the eval circle to PNGs and a gif;
-``export`` writes the textured OBJ/MTL. TensorBoard and wandb are not
-ported.
+``export`` writes the textured OBJ/MTL.
 """
 
 from __future__ import annotations
 
-import csv
 import os
 import time
 from dataclasses import dataclass, field
@@ -30,7 +32,11 @@ from dreammat_tpu_torch.utils import saving
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.ckpt import save_checkpoint
 from dreammat_tpu_torch.utils.hw import resolve_device
+from dreammat_tpu_torch.utils.loggers import (
+    CSVLogger, MultiLogger, ProgressWriter, TSVEventLogger, WandbLogger,
+)
 from dreammat_tpu_torch.utils.rng import TorchDraws
+from dreammat_tpu_torch.utils.tboard import TensorBoardLogger
 from dreammat_tpu_torch.utils.schedule import C
 
 
@@ -92,7 +98,8 @@ class DreamMat(BaseObject):
         self.exporter = None
 
     def on_fit_start(self, seed: int = 0) -> None:
-        """Build the guidance (random weights) and the prompt embeddings."""
+        """Build the guidance (weights from its cache_dir where present, random
+        otherwise) and the prompt embeddings."""
         find = dreammat_tpu_torch.find
         if self.guidance is None:
             self.guidance = find(self.cfg.guidance_type)(self.cfg.guidance, device=self.device)
@@ -167,39 +174,43 @@ class DreamMat(BaseObject):
         cuda = self.device.type == "cuda"
         sync = (lambda: torch.cuda.synchronize(self.device)) if cuda else (lambda: None)
         grid_every = save_train_image_iter or self.cfg.save_train_image_iter
-        # one file per fit: rows of an earlier run into the same trial_dir go
-        with open(os.path.join(log_dir, "metrics.csv"), "w", newline="") as fcsv:
-            writer = None
-            for it in range(self.global_step, max_steps):
-                batch = datamodule.collate(step=it)
-                draws.step = it
-                if cuda:
-                    torch.cuda.reset_peak_memory_stats(self.device)
-                t0 = time.time()
-                metrics = self.train_step(batch, draws)
-                sync()
-                self.step_seconds.append(time.time() - t0)
-                self.step_losses.append(float(metrics["loss"]))
-                self.step_kinds.append("tables" if batch.get("light_table") is not None else "mc")
-                if cuda:
-                    self.step_peak_gb.append(torch.cuda.max_memory_allocated(self.device) / 1e9)
-                if (it + 1) % log_every == 0 or it + 1 == max_steps:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    dreammat_tpu_torch.info(
-                        "step %d loss=%.4f sds=%.4f reg=%.5f (%s, %.3f s/step)", it + 1,
-                        m["loss"], m["loss_sds"], m["loss_mat_reg"], self.step_kinds[-1],
-                        self.step_seconds[-1])
-                    row = {"step": it + 1, **m, "seconds": self.step_seconds[-1]}
-                    if writer is None:
-                        writer = csv.DictWriter(fcsv, fieldnames=list(row))
-                        writer.writeheader()
-                    writer.writerow(row)
-                if self.cfg.save_train_image and grid_every and (it + 1) % grid_every == 0:
-                    self.save_train_grid(batch, trial_dir, it + 1)
-                if val_check_interval and (it + 1) % val_check_interval == 0:
-                    self.validation(datamodule, trial_dir, it + 1)
-                if checkpoint_every and (it + 1) % checkpoint_every == 0:
-                    self.save_checkpoint(trial_dir, it + 1)
+        # one metrics.csv per fit: rows of an earlier run into the same trial_dir go
+        if os.path.exists(os.path.join(log_dir, "metrics.csv")):
+            os.remove(os.path.join(log_dir, "metrics.csv"))
+        wandb_cfg = dict(self.cfg.loggers.get("wandb", {})) if self.cfg.loggers else {}
+        metric_logger = MultiLogger(
+            CSVLogger(log_dir), TSVEventLogger(log_dir),
+            TensorBoardLogger(os.path.join(trial_dir, "tb")),
+            WandbLogger(wandb_cfg.get("project", "dreammat_tpu"),
+                        enable=wandb_cfg.get("enable", False)))
+        progress = ProgressWriter(os.path.join(trial_dir, "progress"))
+        for it in range(self.global_step, max_steps):
+            batch = datamodule.collate(step=it)
+            draws.step = it
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            t0 = time.time()
+            metrics = self.train_step(batch, draws)
+            sync()
+            self.step_seconds.append(time.time() - t0)
+            self.step_losses.append(float(metrics["loss"]))
+            self.step_kinds.append("tables" if batch.get("light_table") is not None else "mc")
+            if cuda:
+                self.step_peak_gb.append(torch.cuda.max_memory_allocated(self.device) / 1e9)
+            if (it + 1) % log_every == 0 or it + 1 == max_steps:
+                m = {k: float(v) for k, v in metrics.items()}
+                dreammat_tpu_torch.info(
+                    "step %d loss=%.4f sds=%.4f reg=%.5f (%s, %.3f s/step)", it + 1,
+                    m["loss"], m["loss_sds"], m["loss_mat_reg"], self.step_kinds[-1],
+                    self.step_seconds[-1])
+                metric_logger.log({**m, "seconds": self.step_seconds[-1]}, it + 1)
+                progress.update(it + 1, max_steps)
+            if self.cfg.save_train_image and grid_every and (it + 1) % grid_every == 0:
+                self.save_train_grid(batch, trial_dir, it + 1)
+            if val_check_interval and (it + 1) % val_check_interval == 0:
+                self.validation(datamodule, trial_dir, it + 1)
+            if checkpoint_every and (it + 1) % checkpoint_every == 0:
+                self.save_checkpoint(trial_dir, it + 1)
         return {"field": self.field, "step": self.global_step}
 
     def save_checkpoint(self, trial_dir: str, step: int) -> str:

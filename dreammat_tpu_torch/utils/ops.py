@@ -145,6 +145,14 @@ def get_orthogonal_directions(directions):
     return safe_normalize(torch.where(use0, otho0, otho1))
 
 
+def perpendicular_component(x, y):
+    """The component of x orthogonal to y, per sample of the leading dim."""
+    dims = tuple(range(1, x.dim()))
+    num = torch.sum(x * y, dim=dims, keepdim=True)
+    den = torch.sum(y * y, dim=dims, keepdim=True) + 1e-8
+    return x - (num / den) * y
+
+
 def sample_sphere_fibonacci(num_samples: int, begin_elevation: float = 0.0):
     """Fibonacci-spiral sphere samples as (azimuths, elevations) in radians,
     numpy float32."""

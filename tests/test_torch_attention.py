@@ -106,6 +106,17 @@ def test_kernel_matches_plain_on_cuda(cuda, shape):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nmh", ATTN_SHAPES)
+def test_kernel_matches_plain_at_the_perp_neg_batch_on_cuda(cuda, nmh):
+    # Perp-Neg runs the UNet and the ControlNet on five replicas: B = 5
+    N, M, H = nmh
+    g = torch.Generator(device=cuda).manual_seed(5 * N + M)
+    q, k, v = (torch.randn(5, n, H, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (N, M, M))
+    _check_fwd(q, k, v)
+
+
 BWD_SHAPES = [SHAPES[0], SHAPES[1], SHAPES[2]]  # incl. ragged N=M=300 and cross M=77
 
 

@@ -3,12 +3,15 @@
 - A fresh interpreter imports every module of ``dreammat_tpu_torch``;
   afterwards no ``jax``, ``jaxlib``, ``flax``, ``optax`` or
   ``dreammat_tpu`` module may be in ``sys.modules``.
-- The entry points (system, datamodule, guidance, renderer, ControlNet
-  trainer, mesh exporter, ``launch_torch.py``) and the public functions
-  that place tensors (schedule, meshes, BVH, FG LUT, eval-camera rays, the
-  texel rasterizer) take ``device``, default to CUDA, and raise without a
-  GPU unless the caller passes ``device="cpu"`` (``--device cpu``).
-- ``launch_torch.py`` imports nothing of JAX either.
+- The entry points (system, datamodule, guidance, prompt processor,
+  renderer, ControlNet trainer, mesh exporter, ``launch_torch.py``,
+  ``generate_controlnet_data_torch.py``) and the public functions that
+  place tensors (schedule, meshes, BVH, FG LUT, eval-camera rays, the texel
+  rasterizer, the ControlNet dataset generator) take ``device``, default to
+  CUDA, and raise without a GPU unless the caller passes ``device="cpu"``
+  (``--device cpu``).
+- ``launch_torch.py`` and ``generate_controlnet_data_torch.py`` import
+  nothing of JAX either.
 - No source file of the port calls PyTorch's fused attention.
 """
 
@@ -66,7 +69,8 @@ def _tiny_cfg():
     ])
 
 
-@pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer", "exporter"])
+@pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer", "exporter",
+                                   "prompt_processor"])
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -83,6 +87,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
             cfg.system.get("renderer", {}), sys_cpu.geometry, sys_cpu.material, **kw),
         "exporter": lambda **kw: find("mesh-exporter")(
             {"texture_size": 8}, sys_cpu.geometry, sys_cpu.material, **kw),
+        "prompt_processor": lambda **kw: find("stable-diffusion-prompt-processor")(
+            cfg.system["prompt_processor"], **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
@@ -90,7 +96,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
 
 
 def _default_device_calls(tmp_path):
-    from dreammat_tpu_torch.data import cameras
+    from dreammat_tpu_torch.data import cameras, controlnet_dataset
     from dreammat_tpu_torch.models import exporter, mesh
     from dreammat_tpu_torch.models.diffusion import scheduler
     from dreammat_tpu_torch.ops import bvh, envmap
@@ -111,13 +117,18 @@ def _default_device_calls(tmp_path):
             cameras.make_eval_cameras(2), 0, 4, 4, **kw),
         "rasterize_uv_texels": lambda **kw: exporter.rasterize_uv_texels(
             np.float32([[0, 0], [1, 0], [0, 1]]), np.int64([[0, 1, 2]]), 4, **kw),
+        "generate_dataset_for_mesh": lambda **kw: controlnet_dataset.generate_dataset_for_mesh(
+            str(obj), str(tmp_path / "data"), n_views=1, n_envs=1, resolution=4,
+            material_cfg={"environment_texture": str(tmp_path / "none"), "n_environments": 1,
+                          "env_height": 4, "env_width": 8, "diffuse_sample_num": 4,
+                          "specular_sample_num": 4}, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["controlnet_trainer", "make_schedule", "make_icosphere",
                                   "mesh_from_numpy", "load_mesh", "build_bvh",
                                   "compute_fg_lut", "camera_rays_and_matrices",
-                                  "rasterize_uv_texels"])
+                                  "rasterize_uv_texels", "generate_dataset_for_mesh"])
 def test_functions_default_to_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -154,6 +165,31 @@ def test_launch_torch_needs_cuda_and_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-3:] == ["raised True", "raised True", "True []"]
+
+
+def test_generate_controlnet_data_torch_needs_cuda_and_imports_nothing_of_jax(tmp_path):
+    """The dataset generator's command line without ``--device cpu`` raises
+    for want of a GPU, after importing the port: no JAX module is loaded."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    code = (
+        "import sys\n"
+        "import generate_controlnet_data_torch as cli\n"
+        "try:\n"
+        f"    cli.main(['--meshes-dir', {str(tmp_path)!r}, '--out', {str(tmp_path / 'out')!r}])\n"
+        "    print('ran')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', 'CUDA' in str(e))\n"
+        "import dreammat_tpu_torch.data.controlnet_dataset\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(repr(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-2:] == ["raised True", "[]"]
 
 
 def test_no_fused_attention_call():
