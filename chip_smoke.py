@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about six minutes
+    python3 chip_smoke.py                 # everything, about five minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -96,7 +96,28 @@ which fails the run on any error:
    N = M = 4096, H = 5; with SDPA's time there) and kernel B bit for bit on
    one 512^2 G-buffer view of the .glb mesh. The seconds of the weight
    loading, both prerenders, each step and the dataset are printed.
-10. A ``{"kernels": [...]}`` line, the card's line, and last
+10. Main path 5: the rest of DreamMat's options (``drive_options``), on the
+   torus of main path 3 written with its (u, v) parameterisation as
+   ``vt``, through ``launch_torch.main(["--train", ...])`` twice. Run a:
+   random cameras (``data.use_fix_views=false``, ``progressive_until=2``,
+   the camera, centre and up perturbs), the UV-space field,
+   ``visibility_subdiv=1`` and prompt debiasing (BERT-base, random weights,
+   the hash vocabulary), 512^2, 4 steps, 1 test view, the export skipped
+   (a UV-space field cannot be exported). Run b: the split-sum path
+   (``use_raytracing=false``) on 4 fixed views, 2 steps, 1 test view, no
+   export. Per run: finite losses, kernel A 46 times a step and no
+   backward kernel, kernel B's launches by stage adding up to its count,
+   the test PNG and gif. Run a: kernel B exactly once per step, the
+   subdivided mesh's counts those of ``subdivide_mesh`` (V + E, 4F), the
+   four debiased prompts in the log; run b: the split-sum stacks of the
+   five maps, finite. Then kernel B bit for bit against the plain caster
+   on every ray of one more sampled camera (perturbs on) of the
+   subdivided torus. The seconds of the random-camera step (beside main
+   path 1's fixed-rig step), each step's G-buffer and probe bake, the
+   subdivided bake, BERT's build and the debiasing, and ``build_splitsum``
+   for the five maps are printed. The same runs go on the CPU at tiny size
+   with ``drive_options(work, device="cpu", size="tiny", torus=(24, 12))``.
+11. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -107,11 +128,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1414,6 +1437,213 @@ def phase_user_files(clock: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 5: the rest of DreamMat's options
+# ---------------------------------------------------------------------------
+
+def options_argv(work: str, obj: str, config: str, device: str, run: str, steps: int,
+                 views: int) -> list:
+    """``launch_torch.py --train`` of main path 5's run ``a`` (random
+    cameras with progressive widening and the camera, centre and up
+    perturbs, the UV-space field, ``visibility_subdiv=1``, prompt
+    debiasing) or ``b`` (the split-sum path on the fixed rig)."""
+    base = ["--config", config, "--train", "--device", device,
+            *main_overrides(views, f"mesh:{obj}", "1.0"), "data.n_test_views=1",
+            f"trainer.max_steps={steps}", f"exp_root_dir={work}/runs_{run}", "use_timestamp=false"]
+    if run == "a":
+        return base + ["data.use_fix_views=false", "data.progressive_until=2",
+                       "data.camera_perturb=0.1", "data.center_perturb=0.05",
+                       "data.up_perturb=0.02", "system.geometry.n_input_dims=2",
+                       "system.renderer.visibility_subdiv=1",
+                       "system.prompt_processor.use_prompt_debiasing=true"]
+    return base + ["system.material.use_raytracing=false"]
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def drive_options(work: str, device: str = "cuda", size: str = "sd21", steps_a: int = 4,
+                  steps_b: int = 2, views_b: int = 4, torus=(192, 96)) -> dict:
+    """Main path 5 through ``launch_torch.py --train`` on the torus of main
+    path 3 written with its (u, v) parameterisation as ``vt``: run ``a``
+    (random cameras, the UV field, ``visibility_subdiv=1``, prompt
+    debiasing; ``steps_a`` steps, 1 test view, the export skipped as the
+    UV field cannot be exported) and run ``b`` (the split-sum path, fixed
+    rig of ``views_b`` views, ``steps_b`` steps, 1 test view, no export:
+    main path 3 has it). Per run: kernel A's and B's launches (B by stage),
+    finite losses, the files. Run ``a`` also: one launch of kernel B per
+    step, the subdivided mesh against ``subdivide_mesh``, the debiased
+    prompts in the log, and the seconds of the subdivided bake, the
+    debiasing, each step's G-buffer and probe bake. Run ``b``: the
+    split-sum stacks and the seconds of ``build_splitsum`` for every map.
+    Returns what was measured and, under ``views``, run a's system and
+    data module; raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch.data import prerender as prerender_lib
+    from dreammat_tpu_torch.data.datamodule import RandomCameraDataModule
+    from dreammat_tpu_torch.models import debias as debias_lib
+    from dreammat_tpu_torch.models import mesh as mesh_lib
+    from dreammat_tpu_torch.models.material import DreamMatMaterial
+    from dreammat_tpu_torch.models.renderer import RaytraceRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.systems.dreammat import DreamMat
+
+    cuda = torch.device(device).type == "cuda"
+    config = "configs/dreammat.yaml" if size == "sd21" else "configs/dreammat_tiny.yaml"
+    shutil.rmtree(work, ignore_errors=True)
+    v, f = mesh_lib.torus_arrays(0.7, 0.28, *torus)
+    vt, ft = mesh_lib.torus_uv_arrays(*torus)
+    obj = mesh_lib.write_obj(os.path.join(work, "torus_uv.obj"), v, f, vt, ft)
+    res = {"runs": {}}
+    real_export = DreamMat.export
+    DreamMat.export = lambda self, *a, **k: None  # run b: main path 3 has the export
+    lines = _LogLines()
+    dreammat_tpu_torch.logger.addHandler(lines)
+    try:
+        for run, steps, views in (("a", steps_a, 1), ("b", steps_b, views_b)):
+            stages = StageLaunches()
+            stages.wrap(RaytraceRenderer, "configure", "configure_and_bake")
+            stages.wrap(RaytraceRenderer, "build_gbuffers_batched", "fixed_rig_gbuffers")
+            stages.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
+            stages.wrap(RaytraceRenderer, "build_gbuffer", "budget_and_test_views")
+            stages.wrap(RaytraceRenderer, "build_gbuffer_from_rays", "step_gbuffers")
+            stages.wrap(prerender_lib, "probe_view_for_camera", "step_probes")
+            stages.wrap(debias_lib, "build_bert_mlm", "bert_build")
+            stages.wrap(debias_lib, "get_debiased_prompt", "debiasing")
+            stages.wrap(DreamMatMaterial, "ensure_splitsum", "build_splitsum")
+            for fn in (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+                       attn.flash_attention_bwd_dkv, bvh_lib.cast_rays_dense):
+                fn.launches = 0
+            del lines.lines[:]
+            t0 = time.time()
+            try:
+                out = launch_torch.main(options_argv(work, obj, config, device, run, steps,
+                                                     views))
+            finally:
+                stages.restore()
+            if cuda:
+                torch.cuda.synchronize()
+            system, dm, trial = out["system"], out["datamodule"], out["trial_dir"]
+            r = {"seconds": time.time() - t0,
+                 "launches": {"flash_attn_fwd": attn.flash_attention_fwd.launches,
+                              "ray_cast": bvh_lib.cast_rays_dense.launches},
+                 "ray_cast_by_stage": dict(stages.counts), "stage_s": dict(stages.seconds),
+                 "step_s": list(system.step_seconds), "losses": list(system.step_losses),
+                 "step_kinds": list(system.step_kinds), "step_peak_gb": list(system.step_peak_gb)}
+            bwd = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
+            if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"path 5 run {run}: losses {r['losses']}")
+            if cuda and (r["launches"]["flash_attn_fwd"] != 46 * steps or bwd):
+                raise AssertionError(f"path 5 run {run}: kernel A {r['launches']}, backward {bwd}"
+                                     f" (expected {46 * steps} and 0)")
+            if cuda and r["launches"]["ray_cast"] != sum(stages.counts.values()):
+                raise AssertionError(f"path 5 run {run}: kernel B {r['launches']['ray_cast']} "
+                                     f"launches, by stage {stages.counts}")
+            save = os.path.join(trial, "save")
+            r["files"] = {name: check_file(os.path.join(save, name), magic, 100, tail)
+                          for name, magic, tail in (
+                              (f"it{steps}-test/0.png", b"\x89PNG\r\n\x1a\n", b""),
+                              (f"it{steps}-test.gif", b"GIF89a", b";"))}
+            if run == "a":
+                if cuda and stages.counts["step_gbuffers"] != steps:
+                    raise AssertionError(f"kernel B launched {stages.counts['step_gbuffers']} "
+                                         f"times in {steps} random-camera steps")
+                want = mesh_lib.subdivide_mesh(system.geometry.isosurface(), 1)
+                got = system.renderer.mesh
+                V, F = len(v), len(f)
+                counts = {"vertices": got.v_pos.shape[0], "triangles": got.t_pos_idx.shape[0]}
+                if counts != {"vertices": want.v_pos.shape[0],
+                              "triangles": want.t_pos_idx.shape[0]} \
+                        or counts != {"vertices": V + 3 * F // 2, "triangles": 4 * F}:
+                    raise AssertionError(f"subdivided mesh {counts}, subdivide_mesh "
+                                         f"{want.v_pos.shape[0]} / {want.t_pos_idx.shape[0]}")
+                debiased = [x for x in lines.lines if x.startswith("Debiased prompt of the")]
+                if len(debiased) != 4 or len(system.prompt_processor.debiased) != 4:
+                    raise AssertionError(f"debiased prompts logged: {debiased}")
+                if os.path.exists(os.path.join(save, "export")) or not any(
+                        x.startswith("export skipped") for x in lines.lines):
+                    raise AssertionError("the UV-field run did not skip its export")
+                r.update(subdivided=counts, debiased=debiased, budget=dm._random_budget,
+                         prompts_vd=list(system.prompt_processor.prompts_vd))
+                res["views"] = (system, dm)
+                log(f"options a: {V} vertices / {F} triangles subdivided to {counts}; pixel "
+                    f"budget {dm._random_budget}; debiased: {'; '.join(debiased)}")
+            else:
+                ss = system.material.splitsum
+                shape = (system.material.envs.shape[0], 7, system.material.cfg.splitsum_height,
+                         system.material.cfg.splitsum_width, 3)
+                if ss is None or tuple(ss["specular"].shape) != shape or not bool(
+                        torch.isfinite(ss["specular"]).all() & torch.isfinite(ss["diffuse"]).all()):
+                    raise AssertionError(f"split-sum stacks: want {shape}, finite")
+                r["splitsum_shape"] = shape
+                del system, dm
+            log(f"options {run}: launch_torch.py --train in {r['seconds']:.1f}s; launches "
+                f"{r['launches']}, kernel B by stage {r['ray_cast_by_stage']}; stage seconds "
+                + ", ".join(f"{k} {x:.3f}" for k, x in r["stage_s"].items() if x)
+                + f"; steps {', '.join(f'{x:.4f}s' for x in r['step_s'])} "
+                f"({', '.join(r['step_kinds'])}; peak "
+                f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])}); losses "
+                f"{', '.join(f'{x:.6g}' for x in r['losses'])}")
+            res["runs"][run] = r
+            del out
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        DreamMat.export = real_export
+        dreammat_tpu_torch.logger.removeHandler(lines)
+    return res
+
+
+def phase_options(clock: float, fixed_step_s: Optional[float]) -> dict:
+    """Main path 5 on the card (``drive_options`` at SD2.1 width, 512^2),
+    then kernel B bit for bit against the plain caster on every ray of one
+    more sampled camera of run a (perturbs on), on the subdivided torus."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_options")
+    res = drive_options(work)
+    system, dm = res.pop("views")
+    ra = res["runs"]["a"]
+    warm = ra["step_s"][1:]
+    cam = dm._sample_camera(len(ra["step_s"]))
+    ren = system.renderer
+    res["ray_cast_sampled_view"] = _cast_case(
+        "sampled camera 512^2 (perturbs on), subdivided torus", ren.bvh, ren.tri_data,
+        cam["rays_o"].reshape(-1, 3).contiguous(), cam["rays_d"].reshape(-1, 3).contiguous(),
+        clock)
+    res["timing"] = {
+        "random_step_warm_s": float(np.mean(warm)), "fixed_step_warm_s": fixed_step_s,
+        "step_gbuffer_s": ra["stage_s"]["step_gbuffers"] / len(ra["step_s"]),
+        "step_probes_s": ra["stage_s"]["step_probes"] / len(ra["step_s"]),
+        "subdivided_configure_and_bake_s": ra["stage_s"]["configure_and_bake"],
+        "bert_build_s": ra["stage_s"]["bert_build"], "debiasing_s": ra["stage_s"]["debiasing"],
+        "build_splitsum_s": res["runs"]["b"]["stage_s"]["build_splitsum"]}
+    t = res["timing"]
+    log(f"options: warm random-camera step {t['random_step_warm_s']:.4f}s against the fixed "
+        f"rig's {t['fixed_step_warm_s'] if fixed_step_s is None else f'{fixed_step_s:.4f}'}s "
+        f"(main path 1); per step G-buffer {t['step_gbuffer_s']:.4f}s, probes and table "
+        f"{t['step_probes_s']:.4f}s; subdivided configure and bake "
+        f"{t['subdivided_configure_and_bake_s']:.3f}s; BERT-base build {t['bert_build_s']:.3f}s, "
+        f"debiasing {t['debiasing_s']:.3f}s; build_splitsum for "
+        f"{res['runs']['b']['splitsum_shape'][0]} maps {t['build_splitsum_s']:.3f}s")
+    res["counts"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                     for k in ("flash_attn_fwd", "ray_cast")}
+    del system, dm, ren
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1451,7 +1681,8 @@ def main() -> int:
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
     l_counts = {"flash_attn_fwd": None, "ray_cast": None}
     u_counts = {"flash_attn_fwd": None, "ray_cast": None}
-    main_res = cn_res = launch_res = user_res = None
+    o_counts = {"flash_attn_fwd": None, "ray_cast": None}
+    main_res = cn_res = launch_res = user_res = opt_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -1462,6 +1693,8 @@ def main() -> int:
         l_counts = launch_res["counts"]
         user_res = phase_user_files(cast_res["clock"])
         u_counts = user_res["counts"]
+        opt_res = phase_options(cast_res["clock"], main_res["warm_step_s"])
+        o_counts = opt_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -1476,7 +1709,8 @@ def main() -> int:
          "launches_by_path": {"dreammat": counts["flash_attn_fwd"],
                               "controlnet_training": cn_counts["flash_attn_fwd"],
                               "dreammat_launch_torus": l_counts["flash_attn_fwd"],
-                              "dreammat_user_files": u_counts["flash_attn_fwd"]},
+                              "dreammat_user_files": u_counts["flash_attn_fwd"],
+                              "dreammat_options": o_counts["flash_attn_fwd"]},
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
              "lib_graph_ms", "bound_ms", "by")},
@@ -1515,11 +1749,16 @@ def main() -> int:
                               "dreammat_launch_torus": l_counts["ray_cast"],
                               "dreammat_launch_torus_by_stage":
                                   launch_res and launch_res["stage_launches"],
-                              "dreammat_user_files": u_counts["ray_cast"]},
+                              "dreammat_user_files": u_counts["ray_cast"],
+                              "dreammat_options": o_counts["ray_cast"],
+                              "dreammat_options_by_stage": opt_res and {
+                                  run: r["ray_cast_by_stage"]
+                                  for run, r in opt_res["runs"].items()}},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff")}
                      for r in ((launch_res["ray_cast"] if launch_res else [])
-                               + ([user_res["ray_cast_view"]] if user_res else []))],
+                               + ([user_res["ray_cast_view"]] if user_res else [])
+                               + ([opt_res["ray_cast_sampled_view"]] if opt_res else []))],
          "max_abs_err": max(r["t_err"] for r in cast_res["rows"]),
          "sm_clock_mhz": b["sm_clock_mhz"],
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
@@ -1530,7 +1769,8 @@ def main() -> int:
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
-                   "launch": launch_res, "user_files": user_res, "card": card}, f, indent=1,
+                   "launch": launch_res, "user_files": user_res, "options": opt_res,
+                   "card": card}, f, indent=1,
                   default=str)
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))

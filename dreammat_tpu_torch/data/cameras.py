@@ -70,7 +70,7 @@ def camera_rays_and_matrices(cam: CameraSet, i: int, height: int, width: int, de
     mvp, w2c = uops.get_mvp_matrix(c2w, proj)
     focal = 0.5 * height / np.tan(0.5 * fovy)
     dirs = uops.get_ray_directions(height, width, float(focal), device=device)
-    rays_o, rays_d = uops.get_rays(dirs, c2w[0])
+    rays_o, rays_d = uops.get_rays(dirs, c2w[0], keepdim=True)
     return {
         "rays_o": rays_o, "rays_d": rays_d, "mvp_mtx": mvp[0], "w2c": w2c[0], "c2w": c2w[0],
         "camera_position": pos,

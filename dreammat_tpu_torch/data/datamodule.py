@@ -1,6 +1,6 @@
-"""Data module: the fixed camera rig, its prerender, and per-step batches.
+"""Data module: the fixed camera rig or random cameras, and per-step batches.
 
-Counterpart of the fixed-rig path of ``dreammat_tpu/data/datamodule.py``:
+Counterpart of the mesh paths of ``dreammat_tpu/data/datamodule.py``:
 ``setup`` runs the prerender, the fast-path gate (``fastpath_check``:
 ``auto`` measures the mesh's self-occlusion first, ``true`` always checks,
 ``false`` never; a failed check drops the light tables, and training
@@ -17,8 +17,17 @@ The prerender reads and writes its npz cache under ``prerender_cache_dir``
 the condition maps come from the reference's Blender PNG cache there,
 after the prerender and the gate, as in the JAX package.
 
-Not ported yet (it raises when asked for): random-camera mode.
-``static_field_maps`` is accepted; the port has no
+Random-camera mode (``use_fix_views: false``): ``setup`` makes only the
+mesh bakes and a fixed pixel budget (the foreground of the closest,
+narrowest-fov probe camera x 1.1, rounded up to 1024); no gate, no pixel
+tables, no hybrid steps. Every ``collate`` samples a camera with the same
+numpy draws, in the same order, as the JAX package (elevation half the
+time uniform in degrees and half uniform on the sphere, azimuth, distance,
+fovy, the camera, centre and up perturbs, the ranges widened until
+``progressive_until``; then the environment), casts its G-buffer (one
+launch of kernel B on the card) and bakes its probes and light table.
+The rays-only (volume) mode, without a mesh renderer, is not ported (it
+raises). ``static_field_maps`` is accepted; the port has no
 sort maps (autograd's scatter serves the field backward) but keeps their
 per-view jitter: with ``jitter_resample: "view"`` the jitter points are
 drawn once per view.
@@ -37,6 +46,7 @@ import dreammat_tpu_torch
 from dreammat_tpu_torch.data import cameras as cam_lib
 from dreammat_tpu_torch.data import prerender as prerender_lib
 from dreammat_tpu_torch.data.prerender import _sync
+from dreammat_tpu_torch.utils import ops as uops
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.hw import resolve_device
 from dreammat_tpu_torch.utils.rng import TorchDraws
@@ -94,9 +104,9 @@ class RandomCameraDataModule(BaseObject):
     def configure(self, renderer=None, material=None, device="cuda") -> None:
         cfg = self.cfg
         self.device = resolve_device(device)
-        if renderer is None or not cfg.use_fix_views:
+        if renderer is None:
             raise NotImplementedError(
-                "only the fixed-camera rig with a mesh renderer is ported so far")
+                "the rays-only (volume) mode is not ported: a mesh renderer is needed")
         self.renderer = renderer
         self.material = material
         self.cameras = cam_lib.make_fixed_cameras(
@@ -112,9 +122,14 @@ class RandomCameraDataModule(BaseObject):
         self._jitter_pts: List[Optional[torch.Tensor]] = [None] * cfg.fix_view_num
         self._pixel_vis: Optional[List[torch.Tensor]] = None
         self.gate: Dict[str, Any] = {}
+        self._random_budget: Optional[int] = None
+        self._eval_data: Optional[prerender_lib.PrerenderData] = None
 
     def setup(self) -> None:
         cfg = self.cfg
+        if not cfg.use_fix_views:
+            self._setup_random()
+            return
         self.data = prerender_lib.prerender(
             self.renderer, self.material, self.cameras, cfg.height, cfg.width, cfg.fix_env_num,
             cache_dir=cfg.prerender_cache_dir, cond_height=cfg.cond_height,
@@ -223,9 +238,101 @@ class RandomCameraDataModule(BaseObject):
                                 "in %.2fs", len(tables), mb, self.data.seconds["pixel_tables"])
         return tables
 
-    def collate(self, step: int = 0) -> Dict[str, Any]:
-        """One batch: a random fixed view and a random environment."""
+    def _setup_random(self) -> None:
+        """The mesh bakes and the fixed pixel budget of the random cameras."""
         cfg = self.cfg
+        t0 = time.time()
+        self._bakes = prerender_lib.mesh_bakes(self.renderer, self.material, cfg.fix_env_num)
+        budget = cfg.pixel_budget
+        if not budget:
+            # the largest foreground: the closest camera (perturbs can pull
+            # it closer) with the narrowest field of view
+            d = cfg.camera_distance_range[0] - cfg.camera_perturb
+            f32 = lambda x: np.asarray([x], np.float32)
+            probe = cam_lib.CameraSet(f32(0.0), f32(0.0), f32(d), f32(cfg.fovy_range[0]))
+            cd = cam_lib.camera_rays_and_matrices(probe, 0, cfg.height, cfg.width,
+                                                  device=self.device)
+            gb = self.renderer.build_gbuffer(cd["rays_o"], cd["rays_d"], cd["w2c"])
+            count = int(gb.fg_valid.sum())
+            budget = int(np.ceil(max(count, 1) * 1.1 / 1024)) * 1024
+        self._random_budget = budget
+        self.data = None
+        lvis, e_d_vertex, _, oct_res = self._bakes
+        # the table source of the eval views
+        self._eval_data = prerender_lib.PrerenderData(
+            gbuffers=[], lightmaps=None, depths=None, normals=None, table_diff=e_d_vertex,
+            lvis=lvis, oct_res=oct_res)
+        _sync(self.device)
+        dreammat_tpu_torch.info("random-camera mode: pixel budget %d, mesh bakes ready in %.2fs",
+                                budget, time.time() - t0)
+
+    def _sample_camera(self, step: int) -> Dict[str, Any]:
+        """This step's camera, from ``self.rng`` in the JAX package's order."""
+        cfg = self.cfg
+        rng = self.rng
+        r = min(1.0, step / (cfg.progressive_until + 1)) if cfg.progressive_until > 0 else 1.0
+        elev_range = ((1 - r) * cfg.eval_elevation_deg + r * cfg.elevation_range[0],
+                      (1 - r) * cfg.eval_elevation_deg + r * cfg.elevation_range[1])
+        azim_range = (r * cfg.azimuth_range[0], r * cfg.azimuth_range[1])
+        if rng.rand() < 0.5:
+            elevation = rng.rand() * (elev_range[1] - elev_range[0]) + elev_range[0]
+        else:  # uniform on the sphere
+            pct = [(elev_range[0] + 90.0) / 180.0, (elev_range[1] + 90.0) / 180.0]
+            elevation = float(np.rad2deg(np.arcsin(
+                2 * (rng.rand() * (pct[1] - pct[0]) + pct[0]) - 1.0)))
+        azimuth = rng.rand() * (azim_range[1] - azim_range[0]) + azim_range[0]
+        dist = (rng.rand() * (cfg.camera_distance_range[1] - cfg.camera_distance_range[0])
+                + cfg.camera_distance_range[0])
+        fovy_deg = rng.rand() * (cfg.fovy_range[1] - cfg.fovy_range[0]) + cfg.fovy_range[0]
+        pos = uops.camera_position_from_spherical(float(elevation), float(azimuth),
+                                                  float(dist)).numpy()
+        pos = pos + (rng.rand(3) * 2.0 - 1.0) * cfg.camera_perturb
+        center = rng.randn(3) * cfg.center_perturb
+        up = np.asarray([0.0, 0.0, 1.0]) + rng.randn(3) * cfg.up_perturb
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)[None]
+        c2w = uops.get_c2w(t(pos), t(center), t(up))[0]
+        focal = 0.5 * cfg.height / np.tan(0.5 * np.deg2rad(fovy_deg))
+        dirs = uops.get_ray_directions(cfg.height, cfg.width, float(focal), device=self.device)
+        rays_o, rays_d = uops.get_rays(dirs, c2w, keepdim=True)
+        return {"elevation": elevation, "azimuth": azimuth, "dist": dist, "fovy_deg": fovy_deg,
+                "pos": pos, "c2w": c2w, "w2c": uops.get_w2c(c2w), "rays_o": rays_o,
+                "rays_d": rays_d}
+
+    def _collate_random(self, step: int) -> Dict[str, Any]:
+        """A sampled camera's batch: its G-buffer, its condition stack under
+        a random environment and its per-vertex light table [V,1+K,3]."""
+        cfg = self.cfg
+        cam = self._sample_camera(step)
+        env_id = int(self.rng.randint(0, cfg.fix_env_num))
+        gb = self.renderer.build_gbuffer_from_rays(cam["rays_o"], cam["rays_d"], cam["w2c"],
+                                                   pixel_budget=self._random_budget)
+        probes, tab, depth_c, normal_c = prerender_lib.probe_view_for_camera(
+            self.renderer, self._bakes,
+            torch.as_tensor(np.asarray(cam["pos"], np.float32), device=self.device), gb,
+            cfg.fix_env_num, cfg.cond_height, cfg.cond_width)
+        cond = torch.cat([depth_c.float(), normal_c.float(), probes[env_id].float()], dim=-1)
+        f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
+        return {
+            "view_id": -1,
+            "env_id": env_id,
+            "gbuffer": gb,
+            "jitter_pts": None,
+            "light_table": tab[env_id].float(),
+            "pixel_vis": None,
+            "condition_map": cond.permute(2, 0, 1)[None].contiguous(),  # [1,22,h,w]
+            "elevation": f32(cam["elevation"]),
+            "azimuth": f32(cam["azimuth"]),
+            "camera_distances": f32(cam["dist"]),
+            "height": cfg.height,
+            "width": cfg.width,
+        }
+
+    def collate(self, step: int = 0) -> Dict[str, Any]:
+        """One batch: a random fixed view and a random environment, or in
+        random-camera mode a sampled camera."""
+        cfg = self.cfg
+        if not cfg.use_fix_views:
+            return self._collate_random(step)
         assert self.data is not None, "call setup() first"
         view_id = int(self.rng.randint(0, cfg.fix_view_num))
         env_id = int(self.rng.randint(0, cfg.fix_env_num))
@@ -268,13 +375,16 @@ class RandomCameraDataModule(BaseObject):
         if self.data is not None and self.data.gbuffers:
             budget = int(np.ceil(self.data.gbuffers[0].fg_idx.shape[0] * max(scale, 1.0)
                                  / 1024)) * 1024
+        elif self._random_budget:
+            budget = int(np.ceil(self._random_budget * max(scale, 1.0) / 1024)) * 1024
         gb = self.renderer.build_gbuffer(cd["rays_o"], cd["rays_d"], cd["w2c"],
                                          pixel_budget=budget)
         light_table = None
-        if self.data is not None and self.data.lvis is not None \
+        table_src = self.data if self.data is not None else self._eval_data
+        if table_src is not None and table_src.lvis is not None \
                 and getattr(self.material.cfg, "use_prefiltered", False):
             light_table = prerender_lib.vertex_table_for_camera(
-                self.renderer, self.material, self.data, cd["camera_position"], env_id)
+                self.renderer, self.material, table_src, cd["camera_position"], env_id)
         f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
         ec = self.eval_cameras
         return {

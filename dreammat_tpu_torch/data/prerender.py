@@ -6,10 +6,11 @@ radiance -> per-vertex irradiance, plus the FG LUT), then per view the
 per-vertex GGX-prefiltered table, the six light-probe images
 (metallic {0,1} x roughness {0, 0.5, 1}, white base color) under every
 environment, and the depth and normal condition maps, all resized to the
-condition resolution. ``vertex_table_for_camera`` makes the table of any
-camera (the eval views). The fast-path gate's two measures compare the
-tables with the exact MC estimator (shadow rays through the renderer's
-``trace``): ``fastpath_residual`` (relative colour RMSE of one view) and
+condition resolution (``probe_view_for_camera``, which also serves one
+sampled camera of the random-camera mode). ``vertex_table_for_camera``
+makes the table of any camera (the eval views). The fast-path gate's two
+measures compare the tables with the exact MC estimator (shadow rays
+through the renderer's ``trace``): ``fastpath_residual`` (relative colour RMSE of one view) and
 ``fastpath_grad_cos`` (cosine of the material gradients on a pixel subset;
 its weights are the named draw ``gate_w``).
 
@@ -119,6 +120,20 @@ def _probe_view_body(v_pos, v_nrm, lvis, e_d_vertex, fg_lut, cam_pos, gb,
     img = torch.zeros(n_envs, H * W, 18, device=out.device).index_add_(1, gb.fg_idx, vals)
     img = img * gb.mask.reshape(1, -1, 1).float()
     return img.reshape(n_envs, H, W, 18), tab_v.permute(2, 0, 1, 3)
+
+
+def probe_view_for_camera(renderer, bakes, cam_pos, gb, n_envs: int, cond_height: int,
+                          cond_width: int):
+    """One camera's probes [E,h,w,18], vertex table [E,V,1+K,3], depth
+    [h,w,1] and normal [h,w,3] maps at the condition resolution, all f16
+    (as the fixed rig stores them), from the mesh ``bakes`` of
+    ``mesh_bakes`` and the camera's G-buffer ``gb``."""
+    lvis, e_d_vertex, fg_lut, oct_res = bakes
+    img, tab = _probe_view_body(renderer.mesh.v_pos, renderer.mesh.v_nrm, lvis, e_d_vertex,
+                                fg_lut, cam_pos, gb, oct_res, n_envs)
+    return (resize_hw(img, cond_height, cond_width).half(), tab.half(),
+            resize_hw(gb.cn_depth.float(), cond_height, cond_width).half(),
+            resize_hw(gb.cn_normal.float(), cond_height, cond_width).half())
 
 
 def vertex_table_for_camera(renderer, material, data: PrerenderData, cam_pos,
@@ -346,12 +361,13 @@ def prerender(renderer, material, cam: CameraSet, height: int, width: int, n_env
     t0 = time.time()
     lightmaps, tables, depths, normals = [], [], [], []
     for i, gb in enumerate(gbuffers):
-        img, tab = _probe_view_body(renderer.mesh.v_pos, renderer.mesh.v_nrm, lvis, e_d_vertex,
-                                    fg_lut, cam_pos[i], gb, oct_res, n_envs)
-        lightmaps.append(resize_hw(img, cond_height, cond_width).half())
-        tables.append(tab[:, :, 1:].half())
-        depths.append(resize_hw(gb.cn_depth.float(), cond_height, cond_width).half())
-        normals.append(resize_hw(gb.cn_normal.float(), cond_height, cond_width).half())
+        img, tab, depth, normal = probe_view_for_camera(
+            renderer, (lvis, e_d_vertex, fg_lut, oct_res), cam_pos[i], gb, n_envs, cond_height,
+            cond_width)
+        lightmaps.append(img)
+        tables.append(tab[:, :, 1:])
+        depths.append(depth)
+        normals.append(normal)
     data = PrerenderData(
         gbuffers=gbuffers, lightmaps=torch.stack(lightmaps), depths=torch.stack(depths),
         normals=torch.stack(normals), table_spec=torch.stack(tables), table_diff=e_d_vertex,

@@ -12,8 +12,10 @@ initialization the port uses when no checkpoint is present, the checkpoint
 file lookup and reader for diffusers-layout weights, the loader of such a
 checkpoint into a port module (``load_diffusers_weights``, the torch ->
 flax direction's fallbacks: old VAE attention names, CLIP's bare
-``position_embedding``, skipped ``position_ids`` buffers), and
-``geometry_params_from_numpy`` for the material field.
+``position_embedding``, skipped ``position_ids`` buffers),
+``geometry_params_from_numpy`` for the material field, and
+``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
+JAX package's ``bert_params_from_torch``).
 """
 
 from __future__ import annotations
@@ -211,6 +213,44 @@ def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     for i, (w, b) in enumerate(zip(params["mlp"]["w"], params["mlp"]["b"])):
         sd[f"mlp.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).T))
         sd[f"mlp.{i}.bias"] = torch.from_numpy(np.array(b, dtype=np.float32))
+    return sd
+
+
+def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's BERT masked-LM params (numpy, flax layout, with or
+    without the top ``params`` level) -> the Hugging Face
+    ``BertForMaskedLM`` state dict of the port's ``bert.BertForMaskedLM``:
+    dense kernels [in,out] transposed to [out,in], ``scale`` to ``weight``."""
+    p = params["params"] if "params" in params else params
+    t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def dense(prefix, leaf):
+        return {prefix + ".weight": t(np.asarray(leaf["kernel"]).T),
+                prefix + ".bias": t(leaf["bias"])}
+
+    def norm(prefix, leaf):
+        return {prefix + ".weight": t(leaf["scale"]), prefix + ".bias": t(leaf["bias"])}
+
+    e = "bert.embeddings."
+    sd = {e + "word_embeddings.weight": t(p["word_embeddings"]["embedding"]),
+          e + "position_embeddings.weight": t(p["position_embeddings"]),
+          e + "token_type_embeddings.weight": t(p["token_type_embeddings"]),
+          **norm(e + "LayerNorm", p["embeddings_ln"]),
+          **dense("cls.predictions.transform.dense", p["mlm_dense"]),
+          **norm("cls.predictions.transform.LayerNorm", p["mlm_ln"]),
+          "cls.predictions.decoder.weight": t(np.asarray(p["mlm_decoder"]["kernel"]).T),
+          "cls.predictions.bias": t(p["mlm_decoder"]["bias"])}
+    i = 0
+    while f"layer_{i}" in p:
+        lp, b = p[f"layer_{i}"], f"bert.encoder.layer.{i}."
+        for name, key in (("query", "attention.self.query"), ("key", "attention.self.key"),
+                          ("value", "attention.self.value"),
+                          ("attn_out", "attention.output.dense"),
+                          ("inter", "intermediate.dense"), ("out", "output.dense")):
+            sd.update(dense(b + key, lp[name]))
+        sd.update(norm(b + "attention.output.LayerNorm", lp["attn_ln"]))
+        sd.update(norm(b + "output.LayerNorm", lp["out_ln"]))
+        i += 1
     return sd
 
 

@@ -9,6 +9,10 @@ rasterization through the dense ray caster (the UV triangles at z = 0, one
 ray per texel centre along -z; kernel B on the card), a field query at the
 texels' surface points, the material's export maps, an inpainting of the
 padding by repeated masked 3x3 means (``conv2d``), and the OBJ/MTL writer.
+The field is queried at 3D texel positions, as in the JAX package, so a
+UV-space field (``n_input_dims: 2``) cannot be exported: the JAX
+exporter fails there on a broadcast, the port raises
+``UVFieldExportError`` before any work.
 
 Kernel B on the UV plane: every plane has N = (0, 0, n_z) and d0 = 0, so
 A = n_z, B = -n_z and t = 1 exactly; the slab test's 1/d of 1e12 on x and y
@@ -298,6 +302,16 @@ class DummyExporter(BaseObject):
         return []
 
 
+class UVFieldExportError(NotImplementedError):
+    """The export of a UV-space (2D) material field."""
+
+
+UV_FIELD_EXPORT = ("the export queries the material field at 3D texel positions "
+                   "(dreammat_tpu/models/exporter.py:361, geometry.py:116), which a "
+                   "UV-space field (system.geometry.n_input_dims=2) cannot take; the JAX "
+                   "package fails there too, and neither package exports a UV-space field")
+
+
 @dreammat_tpu_torch.register("mesh-exporter")
 class MeshExporter(BaseObject):
     @dataclass
@@ -319,6 +333,8 @@ class MeshExporter(BaseObject):
     def export_obj_with_mtl(self, field_, out_dir: str) -> str:
         """Unwrap, bake and write ``<save_name>.obj`` / ``.mtl`` and the
         maps into ``out_dir``; ``self.seconds`` holds each part's time."""
+        if getattr(self.geometry.cfg, "n_input_dims", 3) != 3:
+            raise UVFieldExportError(UV_FIELD_EXPORT)
         sec = self.seconds = {}
         mesh = self.geometry.isosurface()
         dev = self.device

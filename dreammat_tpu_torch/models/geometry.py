@@ -1,7 +1,9 @@
 """DreamMat geometry: frozen mesh + learnable material field.
 
 Counterpart of ``dreammat_tpu/models/geometry.py``: a hash-grid encoding +
-small MLP maps surface points to ``n_feature_dims`` raw material features
+small MLP maps surface points (``n_input_dims: 3``, normalized over the
+``radius`` box) or texture coordinates (``n_input_dims: 2``, the UV-space
+field, over the unit square) to ``n_feature_dims`` raw material features
 (albedo 3, metallic 1, roughness^2 1). The mesh is frozen; the only
 trainable state is the ``MaterialField`` module.
 """
@@ -61,18 +63,19 @@ class DreamMatMesh(BaseObject):
 
     def configure(self, device="cuda") -> None:
         self.device = resolve_device(device)
-        if self.cfg.n_input_dims != 3:
-            raise NotImplementedError("the UV-space (2D) field is not ported yet")
+        if self.cfg.n_input_dims not in (2, 3):
+            raise ValueError(f"n_input_dims must be 2 (UV) or 3, not {self.cfg.n_input_dims}")
         pc = dict(self.cfg.pos_encoding_config)
         pc.pop("otype", None)
-        self.enc_cfg = hg.HashGridConfig(n_input_dims=3, **pc)
+        self.enc_cfg = hg.HashGridConfig(n_input_dims=self.cfg.n_input_dims, **pc)
         nc = self.cfg.mlp_network_config
         self.mlp_dims = mlp_lib.vanilla_mlp_dims(
             self.enc_cfg.n_output_dims, self.cfg.n_feature_dims,
             n_neurons=nc.get("n_neurons", 64), n_hidden_layers=nc.get("n_hidden_layers", 1),
         )
         r = self.cfg.radius
-        self.bbox = torch.tensor([[-r, -r, -r], [r, r, r]], dtype=torch.float32, device=self.device)
+        box = [[-r] * 3, [r] * 3] if self.cfg.n_input_dims == 3 else [[0.0, 0.0], [1.0, 1.0]]
+        self.bbox = torch.tensor(box, dtype=torch.float32, device=self.device)
         self.mesh: Optional[Mesh] = None
         init = self.cfg.shape_init
         if isinstance(init, str) and init.startswith("mesh:"):
@@ -103,6 +106,7 @@ class DreamMatMesh(BaseObject):
         return f
 
     def apply(self, field_: MaterialField, points: torch.Tensor) -> torch.Tensor:
-        """World points [...,3] -> raw features [..., n_feature_dims]."""
+        """World points [...,3] (or texture coordinates [...,2] for the UV
+        field) -> raw features [..., n_feature_dims]."""
         x = (points - self.bbox[0]) / (self.bbox[1] - self.bbox[0])
         return field_(torch.clamp(x, 0.0, 1.0))

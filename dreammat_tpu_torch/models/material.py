@@ -10,8 +10,12 @@ and a GGX specular set from fixed fibonacci points, rotated per pixel by a
 random azimuth in training, the combined-pdf estimator D G / (4 NoV p), and
 incoming radiance from the nearest equirect texel times a visibility from,
 in this order, a per-pixel table, the per-vertex table, the ray tracer
-(``set_raytracer``) or none. The split-sum environment path
-(``use_raytracing: false``) is not ported.
+(``set_raytracer``) or none. With ``use_raytracing: false`` the material
+shades through the split-sum environment instead (``shade_splitsum``): a
+linear roughness from its own activation range (``min_roughness`` ..
+``max_roughness``), the prefiltered stacks of every environment built once
+on first use (``ensure_splitsum``, ``splitsum_height`` x
+``splitsum_width``), no visibility.
 
 The random azimuths are two named draws, ``mc_rot_diffuse`` and
 ``mc_rot_specular`` (uniform [P,1] each), taken from the ``draws`` object
@@ -153,7 +157,21 @@ class DreamMatMaterial(BaseObject):
                                                     device=self.device)
         self.ray_trace_fun: Optional[Callable] = None
         self.baked_visibility = None
+        self.splitsum = None  # built on first use by ensure_splitsum
         self.fg_lut = envmap_lib.compute_fg_lut(device=self.device) if cfg.use_prefiltered else None
+
+    @torch.no_grad()
+    def ensure_splitsum(self) -> dict:
+        """The split-sum stacks of every environment, stacked on a leading
+        axis, and the FG LUT; built once."""
+        if self.splitsum is None:
+            ss = [envmap_lib.build_splitsum(self.envs[i], self.cfg.splitsum_height,
+                                            self.cfg.splitsum_width)
+                  for i in range(self.envs.shape[0])]
+            self.splitsum = {k: torch.stack([x[k] for x in ss]) for k in ss[0]}
+            if self.fg_lut is None:
+                self.fg_lut = envmap_lib.compute_fg_lut(device=self.device)
+        return self.splitsum
 
     def set_raytracer(self, fn: Optional[Callable]) -> None:
         """fn(rays_o [N,3], rays_d [N,3]) -> (positions, normals, depth,
@@ -434,17 +452,47 @@ class DreamMatMaterial(BaseObject):
         return self._mc_outputs(colors, albedo, metallic, roughness_sq, sl_sum / sn, dl_sum / dn,
                                 specular_colors, diffuse_colors)
 
+    def shade_splitsum(self, normals, view_dirs, env_id, metallic, roughness, albedo
+                       ) -> Dict[str, torch.Tensor]:
+        """The split-sum environment path; ``roughness`` is linear."""
+        self.ensure_splitsum()
+        n_dot_v = uops.dot(normals, view_dirs)
+        reflective = n_dot_v * normals * 2.0 - view_dirs
+        fg = envmap_lib.sample_fg_lut(self.fg_lut, torch.clamp(n_dot_v, 0.0, 1.0),
+                                      torch.clamp(roughness, 0.0, 1.0))
+        F0 = (1.0 - metallic) * 0.04 + metallic * albedo
+        specular_albedo = F0 * fg[..., 0:1] + fg[..., 1:2]
+        e = min(max(int(env_id), 0), self.envs.shape[0] - 1)
+        ss = {k: v[e] for k, v in self.splitsum.items()}
+        diffuse_light = envmap_lib.sample_splitsum_diffuse(ss, normals)
+        specular_light = envmap_lib.sample_splitsum_specular(ss, reflective, roughness ** 2)
+        color = torch.clamp(albedo * diffuse_light + specular_albedo * specular_light, 0.0, 1.0)
+        return {
+            "color": color,
+            "albedo": albedo,
+            "roughness": roughness,
+            "metalness": metallic,
+            "specular_light": uops.lin2srgb(specular_light.detach()),
+            "diffuse_light": uops.lin2srgb(diffuse_light.detach()),
+            "specular_color": uops.lin2srgb(specular_albedo.detach()),
+            "diffuse_color": uops.lin2srgb(albedo.detach()),
+        }
+
     def __call__(self, pts, features, features_jitter, viewdirs, normals, env_id, draws=None,
                  is_train: bool = True, mask=None, vis_data=None, light_table=None):
         """Shade a fixed-size pixel batch; returns (outputs, mat_reg_loss).
         With ``use_prefiltered`` and a light table: the tables; otherwise
-        the MC estimator, whose rotations come from ``draws`` in training."""
+        the MC estimator, whose rotations come from ``draws`` in training;
+        with ``use_raytracing: false`` the split-sum environment."""
         material, albedo, metallic, roughness_sq = self.features_to_material(features)
         material_j = self.features_to_material(features_jitter)[0]
         mat_reg = material_smoothness_grad(material, material_j)
         if not self.cfg.use_raytracing:
-            raise NotImplementedError("the split-sum environment path is not ported yet")
-        if self.cfg.use_prefiltered and light_table is not None:
+            act = uops.get_activation(self.cfg.material_activation)(features)
+            roughness = act[..., 4:5] * (self.cfg.max_roughness - self.cfg.min_roughness) \
+                + self.cfg.min_roughness
+            out = self.shade_splitsum(normals, viewdirs, env_id, metallic, roughness, albedo)
+        elif self.cfg.use_prefiltered and light_table is not None:
             out = self.shade_prefiltered(normals, viewdirs, metallic, roughness_sq, albedo,
                                          light_table, vis_data=vis_data)
         else:

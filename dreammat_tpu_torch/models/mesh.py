@@ -3,11 +3,13 @@
 Counterpart of ``dreammat_tpu/models/mesh.py`` for the ported path: the
 OBJ, PLY (ascii and binary) and binary glTF (.glb) loaders, numpy only,
 with the reference's normalization, area-weighted vertex normals,
-``fix_winding_outward``, the procedural icosphere, and the torus of
-``tools/quantify_fastpath.py`` (a self-occluding test shape) with
-writers (``write_obj``, ``write_glb``, ``write_ply``) to hand it to the
-loaders. Meshes are built with
-numpy on the host and held as tensors on one device.
+``fix_winding_outward``, the procedural icosphere, the torus of
+``tools/quantify_fastpath.py`` (a self-occluding test shape) and its
+natural (u, v) parameterisation, writers (``write_obj`` with optional
+texture coordinates, ``write_glb``, ``write_ply``) to hand it to the
+loaders, and ``subdivide_mesh``, the midpoint (1:4) split of the
+renderer's mesh for ``visibility_subdiv``. Meshes are built with numpy on
+the host and held as tensors on one device.
 """
 
 from __future__ import annotations
@@ -319,12 +321,32 @@ def torus_arrays(R: float = 0.7, r: float = 0.28, nu: int = 24, nv: int = 12):
     return v, f.astype(np.int64)
 
 
-def write_obj(path: str, v: np.ndarray, f: np.ndarray) -> str:
-    """A bare OBJ (``v`` and 1-based ``f`` lines)."""
+def torus_uv_arrays(nu: int = 24, nv: int = 12):
+    """The natural (u, v) parameterisation of ``torus_arrays``' torus:
+    texture vertices [(nu+1)*(nv+1),2] float32 on the unit square (the
+    seams duplicated) and texture faces [2*nu*nv,3] int64, face for face."""
+    ui, vi = np.meshgrid(np.arange(nu + 1), np.arange(nv + 1), indexing="ij")
+    vt = np.stack([ui / nu, vi / nv], -1).reshape(-1, 2).astype(np.float32)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * (nv + 1) + j, (i + 1) * (nv + 1) + j
+    c, d = (i + 1) * (nv + 1) + j + 1, i * (nv + 1) + j + 1
+    ft = np.stack([np.stack([a, b, c], -1), np.stack([a, c, d], -1)], 2).reshape(-1, 3)
+    return vt, ft.astype(np.int64)
+
+
+def write_obj(path: str, v: np.ndarray, f: np.ndarray, vt: Optional[np.ndarray] = None,
+              ft: Optional[np.ndarray] = None) -> str:
+    """An OBJ of ``v`` and 1-based ``f`` lines, with ``vt`` lines and
+    ``a/ta`` face corners when texture coordinates are given."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as fh:
         fh.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in v)
-        fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+        if vt is None:
+            fh.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+        else:
+            fh.writelines(f"vt {s_:.6f} {t_:.6f}\n" for s_, t_ in vt)
+            fh.writelines(f"f {a + 1}/{ta + 1} {b + 1}/{tb + 1} {c + 1}/{tc + 1}\n"
+                          for (a, b, c), (ta, tb, tc) in zip(f, ft))
     return path
 
 
@@ -369,3 +391,55 @@ def write_ply(path: str, v: np.ndarray, f: np.ndarray) -> str:
 def make_icosphere(subdiv: int = 2, radius: float = 1.0, device="cuda") -> Mesh:
     v, f = icosphere_arrays(subdiv, radius)
     return Mesh.from_numpy(v, f, device=device)
+
+
+def subdivide_mesh(mesh: Mesh, levels: int = 1, max_verts: int = 1 << 20) -> Mesh:
+    """Uniform midpoint (1:4) subdivision of the same surface, on the host
+    in numpy: one new vertex per unique edge (shared edges once, so the
+    surface stays watertight), each face split into its three corners and
+    the middle. Midpoint normals are the normalized mean of the edge's two;
+    the texture topology is split alike, face for face. Stops before a
+    level that would pass ``max_verts``."""
+
+    def split_topology(faces):
+        F = faces.shape[0]
+        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
+        uniq, inv = np.unique(np.sort(edges, axis=1), axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+
+        def expand(attr, normalize=False):
+            mids = 0.5 * (attr[uniq[:, 0]] + attr[uniq[:, 1]])
+            if normalize:
+                mids = mids / (np.linalg.norm(mids, axis=-1, keepdims=True) + 1e-12)
+            return np.concatenate([attr, mids], axis=0)
+
+        def new_faces(V):
+            m01, m12, m20 = V + inv[:F], V + inv[F:2 * F], V + inv[2 * F:]
+            v0, v1, v2 = faces[:, 0], faces[:, 1], faces[:, 2]
+            return np.concatenate([np.stack([v0, m01, m20], 1), np.stack([v1, m12, m01], 1),
+                                   np.stack([v2, m20, m12], 1), np.stack([m01, m12, m20], 1)])
+
+        return expand, new_faces, len(uniq)
+
+    dev = mesh.v_pos.device
+    v = mesh.v_pos.detach().cpu().numpy().astype(np.float64)
+    f = mesh.t_pos_idx.detach().cpu().numpy().astype(np.int64)
+    vn = mesh.v_nrm.detach().cpu().numpy().astype(np.float64)
+    uv = mesh.v_tex is not None and mesh.t_tex_idx is not None
+    vt = mesh.v_tex.detach().cpu().numpy().astype(np.float64) if uv else None
+    ft = mesh.t_tex_idx.detach().cpu().numpy().astype(np.int64) if uv else None
+    for _ in range(max(int(levels), 0)):
+        expand, faces_of, n_edges = split_topology(f)
+        if v.shape[0] + n_edges > max_verts:
+            break
+        f_new = faces_of(v.shape[0])
+        v, vn = expand(v), expand(vn, normalize=True)
+        if uv:
+            expand_t, faces_t, _ = split_topology(ft)
+            ft = faces_t(vt.shape[0])
+            vt = expand_t(vt)
+        f = f_new
+    t = lambda x, dt: torch.as_tensor(np.asarray(x, dt), device=dev)
+    return Mesh(v_pos=t(v, np.float32), t_pos_idx=t(f, np.int64), v_nrm=t(vn, np.float32),
+                v_tex=t(vt, np.float32) if uv else None,
+                t_tex_idx=t(ft, np.int64) if uv else None)

@@ -8,8 +8,12 @@ prompt library JSON, CLIP loaded from ``pretrained_model_cache_dir/
 text_encoder`` when it holds a checkpoint (random weights otherwise), and
 the md5-keyed on-disk embedding cache: one ``<md5>.npy`` of float32 [N, D]
 per prompt under ``cache_dir``, with the JAX package's key, so the two
-packages share one cache directory. Prompt debiasing is not ported (it
-raises).
+packages share one cache directory. With ``use_prompt_debiasing`` the
+four direction prompts are formatted from the BERT-PMI debiased prompts
+(``models/debias.py``; BERT-base for ``model_size: sd21``, tiny otherwise,
+from ``pretrained_model_name_or_path_prompt_debiasing`` where it holds a
+checkpoint, random weights otherwise); manual view prompts are refused
+then.
 """
 
 from __future__ import annotations
@@ -158,15 +162,28 @@ class StableDiffusionPromptProcessor(BaseObject):
     def configure(self, device="cuda") -> None:
         cfg = self.cfg
         self.device = resolve_device(device)
-        if cfg.use_prompt_debiasing:
-            raise NotImplementedError("prompt debiasing is not ported yet")
         if cfg.view_dependent_prompt_front:
             fmt = ["side view of {}", "front view of {}", "backside view of {}", "overhead view of {}"]
         else:
             fmt = ["{}, side view", "{}, front view", "{}, back view", "{}, overhead view"]
         self.prompt = self.preprocess_prompt(cfg.prompt)
-        manual = [cfg.prompt_side, cfg.prompt_front, cfg.prompt_back, cfg.prompt_overhead]
-        self.prompts_vd = [m if m is not None else f.format(self.prompt) for m, f in zip(manual, fmt)]
+        self.debiased: Optional[List[str]] = None
+        if cfg.use_prompt_debiasing:
+            assert (cfg.prompt_side is None and cfg.prompt_back is None
+                    and cfg.prompt_overhead is None), \
+                "Do not manually assign view prompts when using prompt debiasing"
+            from dreammat_tpu_torch.models.debias import build_bert_mlm, get_debiased_prompt
+
+            mlm_fn, tok, _ = build_bert_mlm(
+                cfg.pretrained_model_name_or_path_prompt_debiasing,
+                size="base" if cfg.model_size == "sd21" else "tiny", device=self.device)
+            self.debiased = get_debiased_prompt(self.prompt, mlm_fn, tok,
+                                                mask_ids=cfg.prompt_debiasing_mask_ids)
+            self.prompts_vd = [f.format(p) for f, p in zip(fmt, self.debiased)]
+        else:
+            manual = [cfg.prompt_side, cfg.prompt_front, cfg.prompt_back, cfg.prompt_overhead]
+            self.prompts_vd = [m if m is not None else f.format(self.prompt)
+                               for m, f in zip(manual, fmt)]
         self.negative_prompts_vd = [cfg.negative_prompt] * 4
         self.text_encoder: Optional[CLIPTextModel] = None
         self.loaded = None  # the CLIP load's report, when a checkpoint was found

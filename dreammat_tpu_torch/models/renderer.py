@@ -4,12 +4,19 @@ Counterpart of ``dreammat_tpu/models/renderer.py``: camera rays for
 spherical look-at cameras (``_views_rays``), one cast per chunk of views
 through the dense caster (kernel B on the card), the fixed-pixel-budget
 foreground compaction with the ControlNet view-space normal (x-flipped) and
-inverse-normalized depth (``_assemble_one``), a one-camera G-buffer for the
-eval views (``build_gbuffer``), the visibility source chosen at configure
-time (``visibility_mode``: ``baked`` per-vertex tables, ``raytrace`` shadow
-rays through ``trace``, or ``none``), and ``shade_view``: field query at the
-G-buffer points and at the jittered points, shading (tables or the MC
-estimator), scatter into the image, and the 1-pixel edge blend.
+inverse-normalized depth and the interpolated texture coordinates
+(``_assemble_one``), a one-camera G-buffer for the eval views
+(``build_gbuffer``) and for a sampled camera of the random-camera mode at
+a fixed pixel budget (``build_gbuffer_from_rays``), the visibility source
+chosen at configure time (``visibility_mode``: ``baked`` per-vertex tables,
+on the mesh split ``visibility_subdiv`` times by ``subdivide_mesh``;
+``raytrace`` shadow rays through ``trace``; or ``none``), and
+``shade_view``: field query at the G-buffer points (at their texture
+coordinates for the UV-space field) and at the jittered points, shading
+(tables, the MC estimator or the split-sum environment), scatter into the
+image, and the 1-pixel edge blend. The jitter is a tangent-plane offset in
+3D (draws ``jitter_angle`` and ``jitter_eps``) and Gaussian UV noise x
+0.005 for the UV field (draw ``jitter_uv``, normal [P,2]).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ class GBufferView(NamedTuple):
     fg_viewdir: torch.Tensor  # [P,3] surface -> camera
     fg_tri: torch.Tensor      # [P,3] int64 vertex ids of the hit triangle
     fg_bary: torch.Tensor     # [P,3] barycentric weights
+    fg_uv: torch.Tensor       # [P,2] interpolated texture coords (zeros without UVs)
 
 
 def _views_rays(elev, azim, dist, fovy_deg, H: int, W: int):
@@ -113,12 +121,18 @@ def _assemble_one(mesh, P: int, H: int, W: int, face, t, u, v, ro, rd, w2c) -> G
     fg_viewdir = torch.where(vm, -uops.safe_normalize(rdf), up)
     bary = torch.cat([1.0 - ug - vg, ug, vg], dim=-1)
     bary = torch.where(vm, bary, torch.tensor([1.0, 0.0, 0.0], device=dev))
+    if mesh.v_tex is not None and mesh.t_tex_idx is not None:
+        tt, vt = mesh.t_tex_idx[f_safe[fg_idx]], mesh.v_tex
+        fg_uv = (1 - ug - vg) * vt[tt[:, 0]] + ug * vt[tt[:, 1]] + vg * vt[tt[:, 2]]
+        fg_uv = torch.where(vm, fg_uv, torch.zeros_like(fg_uv))
+    else:
+        fg_uv = torch.zeros(P, 2, device=dev)
     return GBufferView(
         mask=hit.reshape(H, W),
         cn_normal=cn_normal.reshape(H, W, 3),
         cn_depth=cn_depth.reshape(H, W, 1),
         fg_idx=fg_idx, fg_valid=valid, fg_pos=fg_pos, fg_normal=nrm,
-        fg_viewdir=fg_viewdir, fg_tri=tri, fg_bary=bary,
+        fg_viewdir=fg_viewdir, fg_tri=tri, fg_bary=bary, fg_uv=fg_uv,
     )
 
 
@@ -164,7 +178,10 @@ class RaytraceRenderer(BaseObject):
         self.material = material
         self.mesh = geometry.isosurface()
         if self.cfg.visibility_subdiv > 0 and self.cfg.visibility_mode == "baked":
-            raise NotImplementedError("visibility_subdiv is not ported yet")
+            from dreammat_tpu_torch.models.mesh import subdivide_mesh
+
+            self.mesh = subdivide_mesh(self.mesh, self.cfg.visibility_subdiv,
+                                       max_verts=self.cfg.visibility_subdiv_max_verts)
         if self.cfg.visibility_mode not in ("baked", "raytrace", "none"):
             raise ValueError(f"unknown visibility_mode '{self.cfg.visibility_mode}'")
         self.bvh = bvh_lib.build_bvh(
@@ -211,6 +228,18 @@ class RaytraceRenderer(BaseObject):
                                     "subsampling", hit_count, P)
         return _assemble_one(self.mesh, P, H, W, out["face"], out["t"], out["u"], out["v"],
                              ro, rd, w2c)
+
+    def build_gbuffer_from_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                                w2c: torch.Tensor, pixel_budget: int) -> GBufferView:
+        """One sampled camera's G-buffer from its rays [H,W,3] at the fixed
+        ``pixel_budget`` (random-camera mode): one cast, condition maps in
+        f16 as ``build_gbuffers_batched`` stores them."""
+        H, W = rays_o.shape[:2]
+        ro, rd = rays_o.reshape(-1, 3).float(), rays_d.reshape(-1, 3).float()
+        out = bvh_lib.cast_rays_chunked(self.bvh, ro, rd, tri_data=self.tri_data)
+        gb = _assemble_one(self.mesh, pixel_budget, H, W, out["face"], out["t"], out["u"],
+                           out["v"], ro, rd, w2c)
+        return gb._replace(cn_normal=gb.cn_normal.half(), cn_depth=gb.cn_depth.half())
 
     def build_gbuffers_batched(self, cam, height: int, width: int,
                                pixel_budget: Optional[int] = None, view_chunk: int = 8):
@@ -259,8 +288,14 @@ class RaytraceRenderer(BaseObject):
             eps = torch.full_like(ang, self.cfg.change_eps)
         return gb.fg_pos + (torch.cos(ang) * x + torch.sin(ang) * y) * eps
 
+    @property
+    def uv_field(self) -> bool:
+        return getattr(self.geometry.cfg, "n_input_dims", 3) == 2
+
     def draw_jitter_points(self, gb: GBufferView, draws) -> torch.Tensor:
         P = gb.fg_pos.shape[0]
+        if self.uv_field:
+            return gb.fg_uv + draws.normal("jitter_uv", (P, 2)) * 0.005
         return self.jitter_points(gb, draws.uniform("jitter_angle", (P, 1)),
                                   draws.normal("jitter_eps", (P, 1)))
 
@@ -275,10 +310,11 @@ class RaytraceRenderer(BaseObject):
         zeroes its unused smoothness loss). ``pixel_vis`` [P, O^2] switches
         the MC estimator's visibility to the view's per-pixel table."""
         H, W = gb.mask.shape
+        pts = gb.fg_uv if self.uv_field else gb.fg_pos
         if jitter_pts is None:
-            jitter_pts = gb.fg_pos if (draws is None and not is_train) \
+            jitter_pts = pts if (draws is None and not is_train) \
                 else self.draw_jitter_points(gb, draws)
-        feats = self.geometry.apply(field_, gb.fg_pos)
+        feats = self.geometry.apply(field_, pts)
         feats_jitter = self.geometry.apply(field_, jitter_pts)
         if pixel_vis is not None:
             from dreammat_tpu_torch.ops.visibility import PixelVisibility

@@ -6,8 +6,13 @@ numpy) and ``load_envmap_file`` (``.hdr``, or ``.exr`` through OpenCV when
 it is installed: without it an ``.exr`` raises),
 ``make_procedural_envmap`` (numpy, used when no HDR file exists),
 ``resize_envmap``, equirect sampling with z as the polar axis (nearest, as
-the Monte-Carlo estimators read the environment, and bilinear), and the
-computed Karis split-sum LUT (``compute_fg_lut`` / ``sample_fg_lut``).
+the Monte-Carlo estimators read the environment, and bilinear), the
+computed Karis split-sum LUT (``compute_fg_lut`` / ``sample_fg_lut``), and
+the split-sum environment stack of the ``use_raytracing: false`` path
+(``build_splitsum``: a cosine-convolved irradiance map and GGX-prefiltered
+radiance at ``SPECULAR_LEVELS``, from fixed fibonacci sets, once per map;
+``sample_splitsum_diffuse`` / ``sample_splitsum_specular`` read it, the
+latter mixing the two mips around each point's roughness).
 """
 
 from __future__ import annotations
@@ -169,6 +174,116 @@ def sample_equirect_bilinear(env: torch.Tensor, directions: torch.Tensor) -> tor
     y1i = torch.clamp(y0i + 1, 0, H - 1)
     return (env[y0i, x0i] * (1 - wx) * (1 - wy) + env[y0i, x1i] * wx * (1 - wy)
             + env[y1i, x0i] * (1 - wx) * wy + env[y1i, x1i] * wx * wy)
+
+
+def _equirect_directions(H: int, W: int, device=None) -> torch.Tensor:
+    """The unit direction at each texel centre of an [H,W] equirect map."""
+    v = (torch.arange(H, dtype=torch.float32, device=device) + 0.5) / H
+    u = (torch.arange(W, dtype=torch.float32, device=device) + 0.5) / W
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    theta = vv * math.pi
+    phi = (0.5 - uu) * 2.0 * math.pi
+    return torch.stack([torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi),
+                        torch.cos(theta)], dim=-1)
+
+
+def _frame(z: torch.Tensor):
+    x = uops.get_orthogonal_directions(z)
+    return x, torch.linalg.cross(z, x, dim=-1)
+
+
+def prefilter_diffuse(env: torch.Tensor, out_h: int = 32, out_w: int = 64,
+                      n_samples: int = 512) -> torch.Tensor:
+    """Cosine-convolved irradiance E(n)/pi in equirect layout [h,w,3], from a
+    fixed fibonacci set on the upper hemisphere."""
+    az, el = (torch.as_tensor(a, device=env.device)
+              for a in uops.sample_sphere_fibonacci(n_samples))
+    local = torch.stack([torch.cos(az) * torch.cos(el), torch.sin(az) * torch.cos(el),
+                         torch.sin(el)], dim=-1)                         # [S,3]
+    normals = _equirect_directions(out_h, out_w, env.device).reshape(-1, 3)
+    t, b = _frame(normals)
+    dirs = (local[None, :, 0:1] * t[:, None] + local[None, :, 1:2] * b[:, None]
+            + local[None, :, 2:3] * normals[:, None])                    # [P,S,3]
+    L = sample_equirect_bilinear(env, dirs)
+    cosw = torch.clamp(local[None, :, 2:3], 0.0, 1.0)
+    return (2.0 * torch.mean(L * cosw, dim=1)).reshape(out_h, out_w, 3)
+
+
+def prefilter_specular_level(env: torch.Tensor, roughness_sq: float, out_h: int, out_w: int,
+                             n_samples: int = 256, row_chunk: int = 4096) -> torch.Tensor:
+    """GGX-prefiltered radiance for one squared roughness (N = V = R), equirect
+    [h,w,3]; the smoothest level is the map itself, resized. Texels are
+    taken ``row_chunk`` at a time to bound the [texels, samples, 3] work."""
+    if roughness_sq < 1e-5:
+        return resize_envmap(env, out_h, out_w)
+    az, el = (torch.as_tensor(a, device=env.device)
+              for a in uops.sample_sphere_fibonacci(n_samples))
+    u1, u2 = az / (2.0 * math.pi), 1.0 - 2.0 * el / math.pi
+    a = roughness_sq
+    cos_t = torch.sqrt(torch.clamp((1.0 - u2) / (1.0 + (a * a - 1.0) * u2 + 1e-9), 0.0, 1.0))
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t ** 2, 0.0, 1.0))
+    phi = 2.0 * math.pi * u1
+    local_h = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1)
+    refl_all = _equirect_directions(out_h, out_w, env.device).reshape(-1, 3)
+    out = []
+    for refl in refl_all.split(row_chunk):
+        t, b = _frame(refl)
+        h = (local_h[None, :, 0:1] * t[:, None] + local_h[None, :, 1:2] * b[:, None]
+             + local_h[None, :, 2:3] * refl[:, None])
+        l = 2.0 * torch.sum(refl[:, None] * h, -1, keepdim=True) * h - refl[:, None]
+        w = torch.clamp(torch.sum(refl[:, None] * l, -1, keepdim=True), 0.0, 1.0)
+        L = sample_equirect_bilinear(env, l)
+        out.append(torch.sum(L * w, dim=1) / (torch.sum(w, dim=1) + 1e-6))
+    return torch.cat(out).reshape(out_h, out_w, 3)
+
+
+SPECULAR_LEVELS = (0.0, 0.04, 0.12, 0.25, 0.45, 0.7, 1.0)  # roughness^2 per mip
+
+
+def build_splitsum(env: torch.Tensor, base_h: int = 128, base_w: int = 256) -> dict:
+    """The split-sum stack of one map: ``diffuse`` [32,64,3], ``specular``
+    [M, base_h, base_w, 3] at ``SPECULAR_LEVELS``, and the ``levels``."""
+    spec = [prefilter_specular_level(env, r, base_h, base_w) for r in SPECULAR_LEVELS]
+    return {"diffuse": prefilter_diffuse(env), "specular": torch.stack(spec),
+            "levels": torch.tensor(SPECULAR_LEVELS, dtype=torch.float32, device=env.device)}
+
+
+def sample_splitsum_diffuse(ss: dict, normals: torch.Tensor) -> torch.Tensor:
+    return sample_equirect_bilinear(ss["diffuse"], normals)
+
+
+def sample_splitsum_specular(ss: dict, refl: torch.Tensor,
+                             roughness_sq: torch.Tensor) -> torch.Tensor:
+    """The two mips around each point's roughness^2 ([...,1], clamped to the
+    levels), each read bilinearly, mixed linearly."""
+    levels = ss["levels"]
+    M = levels.shape[0]
+    r = torch.clamp(roughness_sq[..., 0], float(levels[0]), float(levels[-1]))
+    idx = torch.clamp(torch.searchsorted(levels, r.contiguous(), right=True) - 1, 0, M - 2)
+    lo, hi = levels[idx], levels[idx + 1]
+    w = ((r - lo) / (hi - lo + 1e-9))[..., None]
+    all_lo = sample_equirect_bilinear_batchmap(ss["specular"], idx, refl)
+    all_hi = sample_equirect_bilinear_batchmap(ss["specular"], idx + 1, refl)
+    return all_lo * (1 - w) + all_hi * w
+
+
+def sample_equirect_bilinear_batchmap(stack: torch.Tensor, level_idx: torch.Tensor,
+                                      directions: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup where each point reads its own mip: stack [M,H,W,3],
+    level_idx [...], directions [...,3]."""
+    M, H, W = stack.shape[0], stack.shape[1], stack.shape[2]
+    u, v = equirect_uv(directions)
+    x = u * W - 0.5
+    y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+    x0i = torch.remainder(x0.long(), W)
+    x1i = torch.remainder(x0.long() + 1, W)
+    y0i = torch.clamp(y0.long(), 0, H - 1)
+    y1i = torch.clamp(y0i + 1, 0, H - 1)
+    li = torch.clamp(level_idx, 0, M - 1)
+    return (stack[li, y0i, x0i] * (1 - wx) * (1 - wy) + stack[li, y0i, x1i] * wx * (1 - wy)
+            + stack[li, y1i, x0i] * (1 - wx) * wy + stack[li, y1i, x1i] * wx * wy)
 
 
 def _hammersley(n: int):

@@ -73,13 +73,16 @@ def camera_position_from_spherical(elevation_deg, azimuth_deg, distance):
     )
 
 
-def get_c2w(camera_positions):
-    """Look-at-origin camera-to-world matrices [B,4,4], +z up."""
+def get_c2w(camera_positions, center=None, up=None):
+    """Look-at camera-to-world matrices [B,4,4]: each camera at
+    ``camera_positions`` looks at ``center`` (default the origin) with
+    ``up`` (default +z), all [B,3]."""
     pos = torch.atleast_2d(camera_positions)
     B = pos.shape[0]
-    up = torch.tensor([0.0, 0.0, 1.0], device=pos.device).expand(B, 3)
-    lookat = safe_normalize(-pos)
-    right = safe_normalize(cross(lookat, up))
+    if up is None:
+        up = torch.tensor([0.0, 0.0, 1.0], device=pos.device).expand(B, 3)
+    lookat = safe_normalize(-pos if center is None else torch.atleast_2d(center) - pos)
+    right = safe_normalize(cross(lookat, torch.atleast_2d(up)))
     up2 = safe_normalize(cross(right, lookat))
     rot = torch.stack([right, up2, -lookat], dim=-1)  # columns
     c2w = torch.cat([rot, pos[:, :, None]], dim=-1)
@@ -108,11 +111,15 @@ def get_ray_directions(H: int, W: int, focal: float, device="cpu"):
                        dim=-1)
 
 
-def get_rays(directions, c2w):
-    """World rays (origins, unit directions), each [H,W,3], for
-    camera-space ``directions`` [H,W,3] and one ``c2w`` [4,4]."""
+def get_rays(directions, c2w, keepdim: bool = False):
+    """World rays (origins, unit directions) for camera-space
+    ``directions`` [H,W,3] and one ``c2w`` [4,4]: each [H,W,3] with
+    ``keepdim``, else [H*W,3]."""
     rays_d = safe_normalize((directions[..., None, :] * c2w[:3, :3]).sum(-1))
-    return c2w[:3, 3].expand_as(rays_d), rays_d
+    rays_o = c2w[:3, 3].expand_as(rays_d)
+    if not keepdim:
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    return rays_o, rays_d
 
 
 def get_projection_matrix(fovy, aspect_wh: float, near: float, far: float):

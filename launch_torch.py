@@ -8,7 +8,10 @@ The flag surface of ``launch.py``:
 ``--train`` runs the datamodule's setup (prerender, fast-path gate), ``fit``,
 the test renders of the eval circle and the OBJ/MTL export;
 ``--validate`` / ``--test`` / ``--export`` run one of them from a
-checkpoint given by ``--resume``. Dotted ``key=value`` arguments override the
+checkpoint given by ``--resume``. A UV-space field
+(``system.geometry.n_input_dims=2``) cannot be exported (the reference
+queries the field at 3D texel positions): ``--train`` then skips the export
+with a warning, and ``--export`` raises. Dotted ``key=value`` arguments override the
 config. The trial directory receives ``cmd.txt`` and ``parsed.yaml``.
 
 Devices: ``--device`` (default ``cuda``) places everything; ``--gpu N``
@@ -115,9 +118,14 @@ def main(argv=None):
         t0 = time.time()
         system.test(datamodule, cfg.trial_dir, cfg.trainer.max_steps)
         dreammat_tpu_torch.info("test render: %.1fs", time.time() - t0)
-        t0 = time.time()
-        system.export(cfg.trial_dir)
-        dreammat_tpu_torch.info("export: %.1fs", time.time() - t0)
+        if system.geometry.cfg.n_input_dims == 3:
+            t0 = time.time()
+            system.export(cfg.trial_dir)
+            dreammat_tpu_torch.info("export: %.1fs", time.time() - t0)
+        else:
+            from dreammat_tpu_torch.models.exporter import UV_FIELD_EXPORT
+
+            dreammat_tpu_torch.warn("export skipped: %s", UV_FIELD_EXPORT)
         dreammat_tpu_torch.info("setup, training, test renders and export: %.1fs",
                                 time.time() - t_run)
     elif args.validate:

@@ -9,6 +9,12 @@ must be within 1e-3 of the JAX package's (the cosine with the JAX
 package's weights W handed to the port as the draw ``gate_w``). The gate's
 decisions are those of the JAX package's ``tests/test_data.py``,
 and after a drop a train step shades through the MC estimator.
+
+The decision cases share one sphere rig (geometry, material with its FG
+LUT, renderer with its visibility bake) and set up a data module of their
+own on it; the gate restores the material's visibility source. The tests
+that run the port alone do so on one intra-op thread: when several pytest
+workers share the CPU, torch's default thread pool stalls on small ops.
 """
 
 import jax
@@ -58,6 +64,16 @@ def setup_pair(tmp_path_factory, extra=()):
 
 
 @pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests (other test files use it
+    too): several pytest workers may share the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     return setup_pair(tmp_path_factory)
 
@@ -86,9 +102,10 @@ def test_gate_measures_match_jax(pair):
     assert tsys.material.ray_trace_fun is None  # the gate restores the visibility source
 
 
-def _sphere_rig(**data_over):
-    """A level-1 icosphere with a tiny field and material, and a data
-    module on it (the rig of the JAX package's gate tests)."""
+@pytest.fixture(scope="module")
+def sphere_parts(one_thread):
+    """A level-1 icosphere with a tiny field and material and the renderer
+    on them (the rig of the JAX package's gate tests)."""
     find = dreammat_tpu_torch.find
     geo = find("dreammat-mesh")({
         "shape_init": "procedural:sphere", "shape_init_params": 1,
@@ -99,10 +116,16 @@ def _sphere_rig(**data_over):
         "environment_texture": "/nonexistent", "n_environments": 1, "env_height": 16,
         "env_width": 32, "diffuse_sample_num": 32, "specular_sample_num": 32,
         "use_prefiltered": True}, device="cpu")
-    ren = find("raytracing-renderer")({}, geo, mat, device="cpu")
+    return find("raytracing-renderer")({}, geo, mat, device="cpu"), mat
+
+
+def _sphere_rig(parts, **data_over):
+    """A data module on the shared sphere rig, set up."""
+    ren, mat = parts
     base = {"width": 24, "height": 24, "fix_view_num": 1, "fix_env_num": 1, "cond_height": 24,
             "cond_width": 24, "prerender_cache_dir": None, "static_field_maps": False}
-    dm = find("random-camera-datamodule")(dict(base, **data_over), ren, mat, device="cpu")
+    dm = dreammat_tpu_torch.find("random-camera-datamodule")(dict(base, **data_over), ren, mat,
+                                                             device="cpu")
     dm.setup()
     return dm
 
@@ -115,14 +138,14 @@ def _sphere_rig(**data_over):
     ({"fastpath_check": "auto", "fastpath_rmse_threshold": 1e-9,
       "fastpath_occlusion_threshold": 0.0}, False),
 ], ids=["sphere-kept", "rmse-drop", "gradcos-drop", "auto-convex-skips", "auto-forced-drop"])
-def test_gate_decisions(over, kept):
-    dm = _sphere_rig(**over)
+def test_gate_decisions(sphere_parts, over, kept):
+    dm = _sphere_rig(sphere_parts, **over)
     assert (dm.data.table_spec is not None) == kept, dm.gate
     ran = dm.gate["rmse"] is not None
     assert ran == (over["fastpath_check"] is True or over.get("fastpath_occlusion_threshold") == 0)
 
 
-def test_after_a_drop_training_shades_through_mc(tmp_path):
+def test_after_a_drop_training_shades_through_mc(one_thread, tmp_path):
     cfg = tload("configs/dreammat_tiny.yaml", [
         "system.prompt_processor.prompt=a red apple",
         "system.geometry.shape_init=procedural:sphere",

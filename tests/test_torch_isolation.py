@@ -7,7 +7,8 @@
   renderer, ControlNet trainer, mesh exporter, ``launch_torch.py``,
   ``generate_controlnet_data_torch.py``) and the public functions that
   place tensors (schedule, meshes, BVH, FG LUT, eval-camera rays, the texel
-  rasterizer, the ControlNet dataset generator) take ``device``, default to
+  rasterizer, the debiasing BERT, the ControlNet dataset generator) take
+  ``device``, default to
   CUDA, and raise without a GPU unless the caller passes ``device="cpu"``
   (``--device cpu``).
 - ``launch_torch.py`` and ``generate_controlnet_data_torch.py`` import
@@ -97,7 +98,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
 
 def _default_device_calls(tmp_path):
     from dreammat_tpu_torch.data import cameras, controlnet_dataset
-    from dreammat_tpu_torch.models import exporter, mesh
+    from dreammat_tpu_torch.models import debias, exporter, mesh
     from dreammat_tpu_torch.models.diffusion import scheduler
     from dreammat_tpu_torch.ops import bvh, envmap
 
@@ -117,6 +118,7 @@ def _default_device_calls(tmp_path):
             cameras.make_eval_cameras(2), 0, 4, 4, **kw),
         "rasterize_uv_texels": lambda **kw: exporter.rasterize_uv_texels(
             np.float32([[0, 0], [1, 0], [0, 1]]), np.int64([[0, 1, 2]]), 4, **kw),
+        "build_bert_mlm": lambda **kw: debias.build_bert_mlm(None, size="tiny", **kw),
         "generate_dataset_for_mesh": lambda **kw: controlnet_dataset.generate_dataset_for_mesh(
             str(obj), str(tmp_path / "data"), n_views=1, n_envs=1, resolution=4,
             material_cfg={"environment_texture": str(tmp_path / "none"), "n_environments": 1,
@@ -128,7 +130,8 @@ def _default_device_calls(tmp_path):
 @pytest.mark.parametrize("name", ["controlnet_trainer", "make_schedule", "make_icosphere",
                                   "mesh_from_numpy", "load_mesh", "build_bvh",
                                   "compute_fg_lut", "camera_rays_and_matrices",
-                                  "rasterize_uv_texels", "generate_dataset_for_mesh"])
+                                  "rasterize_uv_texels", "build_bert_mlm",
+                                  "generate_dataset_for_mesh"])
 def test_functions_default_to_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")

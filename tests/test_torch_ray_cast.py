@@ -12,15 +12,17 @@ every ray along -z, so the slab test divides by 1e-12 on x and y and every
 hit has t = 1). On the card (``cuda``-marked; ``python -m pytest
 --noconftest -m cuda``): the kernel returns bit for bit what
 ``cast_rays_plain`` returns, on ties, shared edges, degenerate triangles,
-rays that miss, t_max clipping, ragged R and T, shadow rays and the UV
-plane (texel centres on shared edges included).
+rays that miss, t_max clipping, ragged R and T, shadow rays, the UV
+plane (texel centres on shared edges included), and the rays of a sampled
+camera of the random-camera mode (camera, centre and up perturbs on) on
+a subdivided torus.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dreammat_tpu_torch.models.mesh import icosphere_arrays, torus_arrays
+from dreammat_tpu_torch.models.mesh import Mesh, icosphere_arrays, subdivide_mesh, torus_arrays
 from dreammat_tpu_torch.ops import bvh as tbvh
 from dreammat_tpu_torch.ops import visibility as tvis
 
@@ -356,3 +358,21 @@ def test_kernel_exact_on_the_uv_plane(cuda, res):
     got = _assert_exact(b, o.to(cuda), d.to(cuda))
     assert bool((got["t"][got["hit"]] == 1.0).all())
     assert 0.3 < float(got["hit"].float().mean()) < 0.9
+
+
+@pytest.mark.cuda
+def test_kernel_exact_on_a_sampled_camera(cuda):
+    from dreammat_tpu_torch.utils import ops as uops
+
+    v, f = torus_arrays(nu=48, nv=24)
+    m = subdivide_mesh(Mesh.from_numpy(v, f, device=cuda), 1)
+    b = tbvh.build_bvh(m.v_pos.cpu().numpy(), m.t_pos_idx.cpu().numpy(), device=cuda)
+    rng = np.random.RandomState(3)
+    pos = uops.camera_position_from_spherical(20.0, 37.0, 2.4).numpy()
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=cuda)[None]
+    c2w = uops.get_c2w(t(pos + (rng.rand(3) * 2 - 1) * 0.1), t(rng.randn(3) * 0.05),
+                       t(np.float32([0, 0, 1]) + rng.randn(3) * 0.02))[0]
+    dirs = uops.get_ray_directions(512, 512, 0.5 * 512 / np.tan(np.deg2rad(15.0)), device=cuda)
+    o, d = uops.get_rays(dirs, c2w)
+    got = _assert_exact(b, o, d)
+    assert 0.05 < float(got["hit"].float().mean()) < 0.95
