@@ -14,7 +14,8 @@ which fails the run on any error:
    ``UTMALDG`` (TMA loads) and no ``HMMA`` (mma.sync).
 3. Kernel A (flash-attention forward) against ``attention_plain`` at every
    attention shape of the SD2.1 UNet and ControlNet (B = 3 CFG replicas,
-   bf16): max and mean error of O, max error of the log-sum-exp, the
+   bf16; then B = 2 and B = 4, the batches of the SDS guidance without and
+   with Perp-Neg): max and mean error of O, max error of the log-sum-exp, the
    kernel's time (CUDA events over many launches; device time from a
    CUDA-graph replay of 20 launches; host microseconds per launch), the
    plain version's, the bound, and
@@ -117,7 +118,28 @@ which fails the run on any error:
    subdivided bake, BERT's build and the debiasing, and ``build_splitsum``
    for the five maps are printed. The same runs go on the CPU at tiny size
    with ``drive_options(work, device="cpu", size="tiny", torus=(24, 12))``.
-11. A ``{"kernels": [...]}`` line, the card's line, and last
+11. Main path 6: the texcraft family (``drive_texcraft``), on the torus of
+   main path 3, through ``launch_torch.main(["--config",
+   "configs/texcraft.yaml", "--train", ...])`` three times at SD2.1 width,
+   512^2, random weights, 4 fixed views, 1 test view, no export: run
+   ``sds`` (the config's SDS guidance, 3 steps), run ``triple``
+   (``stable-diffusion-triple-guidance`` with depth, canny, HED and
+   NormalBae ControlNets, 2 steps) and run ``perp_neg`` (SDS with
+   Perp-Neg, 1 step); then ``playground_2d_torch.main`` at 512^2, 3
+   steps. Per run: finite losses, the field moved, the test PNG; kernel A
+   exactly 32 launches a step at B = 2, 32 + 4 x 14 = 88 at B = 3 and 32 at
+   B = 4 (counted by batch where its wrapper counts a launch), the
+   playground 32 a step at B = 3; no backward launch; kernel B in the
+   prerender. The triple run's HED (edge map within 1e-3, scribble map on
+   99% of its values) and NormalBae (within one 8-bit level, with its
+   BatchNorm statistics taken from the render: as the run uses it, with
+   random weights and identity statistics, its output depends chaotically
+   on rounding, which the card's fp64 forward shows) on a 512^2 render, on
+   the card against the same modules on the CPU, with their card times.
+   Each run's seconds, warm step and peak memory are printed. The same
+   runs go on the CPU at tiny size with ``drive_texcraft(work,
+   device="cpu", size="tiny", torus=(24, 12), playground_size=32)``.
+12. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -358,12 +380,12 @@ def phase_build(out_dir: str) -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_attention(gen: torch.Generator) -> dict:
+def phase_attention(gen: torch.Generator, B: int = ATTN_B) -> dict:
     import torch.nn.functional as F
 
     from dreammat_tpu_torch.ops import attention as attn
 
-    B, D = ATTN_B, ATTN_D
+    D = ATTN_D
     rows = []
     for N, M, H in ATTN_SHAPES:
         q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -390,7 +412,7 @@ def phase_attention(gen: torch.Generator) -> dict:
         nbytes = 2.0 * B * H * D * (2 * N + 2 * M) + 4.0 * B * H * N
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        rows.append(dict(N=N, M=M, H=H, max_err=max_err, mean_err=mean_err, lse_err=lse_err,
+        rows.append(dict(B=B, N=N, M=M, H=H, max_err=max_err, mean_err=mean_err, lse_err=lse_err,
                          ms=ms, graph_ms=g_ms, host_us=h_us, plain_ms=plain_ms, lib_ms=lib_ms,
                          lib_graph_ms=lib_g_ms, lib_host_us=lib_h_us, bound_ms=bound_ms, by=by))
         log(f"attention B={B} N={N:5d} M={M:5d} H={H:2d}: max|err| {max_err:.3e} "
@@ -1644,6 +1666,336 @@ def phase_options(clock: float, fixed_step_s: Optional[float]) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 6: the texcraft family
+# ---------------------------------------------------------------------------
+
+UNET_ATTENTIONS = 32        # the UNet's 16 transformer blocks, a self- and a cross-attention each
+CONTROLNET_ATTENTIONS = 14  # a ControlNet's 7
+TEXCRAFT_CONTROLS = ["depth", "canny", "hed", "normal"]
+# replicas of one UNet pass per run: SDS (text, uncond), the triple
+# guidance (text, uncond, null), Perp-Neg SDS (text, uncond, two negatives)
+TEXCRAFT_BATCH = {"sds": 2, "triple": 3, "perp_neg": 4}
+# configs/texcraft.yaml cut to the CPU tiny form (the widths of dreammat_tiny.yaml)
+TEXCRAFT_TINY = [
+    "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+    "system.guidance.width=32", "system.guidance.height=32",
+    "system.prompt_processor.model_size=tiny", "system.init_width=32", "system.init_height=32",
+    "system.geometry.pos_encoding_config.n_levels=4",
+    "system.geometry.pos_encoding_config.log2_hashmap_size=10",
+    "system.geometry.pos_encoding_config.base_resolution=4",
+    "system.geometry.pos_encoding_config.per_level_scale=1.5",
+    "system.material.env_height=32", "system.material.env_width=64",
+    "system.material.diffuse_sample_num=16", "system.material.specular_sample_num=8",
+    "data.width=32", "data.height=32", "data.eval_width=32", "data.eval_height=32",
+    "data.cond_width=32", "data.cond_height=32",
+]
+
+
+class AttentionBatches:
+    """Kernel A's launches by batch size: a context that puts a wrapper in
+    the place of ``flash_attention_fwd`` and counts a call by its batch
+    where the kernel's wrapper counted a launch. That wrapper counts on its
+    module's name, which is this wrapper while the context is open; the
+    count goes back to it on exit."""
+
+    def __enter__(self):
+        from dreammat_tpu_torch.ops import attention as attn
+
+        self.counts, self._attn = {}, attn
+        self._fn = fn = attn.flash_attention_fwd
+
+        def counted(q, k, v):
+            before = counted.launches
+            out = fn(q, k, v)
+            if counted.launches > before:
+                self.counts[q.shape[0]] = self.counts.get(q.shape[0], 0) + 1
+            return out
+
+        counted.launches = fn.launches
+        attn.flash_attention_fwd = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._fn.launches = self._attn.flash_attention_fwd.launches
+        self._attn.flash_attention_fwd = self._fn
+
+
+def texcraft_argv(work: str, obj: str, device: str, size: str, run: str, steps: int,
+                  views: int) -> list:
+    """``launch_torch.py --train`` of ``configs/texcraft.yaml`` on ``obj``:
+    run ``sds`` (the config's guidance), ``triple`` (the triple guidance
+    through a ControlNet per control type of ``TEXCRAFT_CONTROLS``; the
+    guidance block is replaced, as the SDS keys do not fit it) or
+    ``perp_neg`` (SDS with Perp-Neg); random weights, 1 test view."""
+    tiny = size == "tiny"
+    argv = ["--config", "configs/texcraft.yaml", "--train", "--device", device,
+            f"system.geometry.shape_init=mesh:{obj}", "system.geometry.shape_init_params=1.0",
+            "system.prompt_processor.prompt=a ceramic vase",
+            "system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
+            "system.material.environment_texture=/nonexistent", f"data.fix_view_num={views}",
+            "data.n_test_views=1", "data.prerender_cache_dir=null",
+            f"trainer.max_steps={steps}", f"exp_root_dir={work}/runs_{run}",
+            "use_timestamp=false"] + (TEXCRAFT_TINY if tiny else [])
+    if run == "triple":
+        n = len(TEXCRAFT_CONTROLS)
+        g = {"model_size": "tiny" if tiny else "sd21", "half_precision_weights": not tiny,
+             "use_controlnet": True, "control_types": TEXCRAFT_CONTROLS,
+             "condition_scales": [1.0] * n, "condition_scales_anneal": [1.0] * n,
+             "width": 32 if tiny else 512, "height": 32 if tiny else 512, "cache_dir": None,
+             "controlnet_path": None, "min_step_percent": 0.02,
+             "max_step_percent": [500, 0.98, 0.5, 501]}
+        if tiny:
+            g["normalbae_detect_resolution"] = 64
+        argv += ["system.guidance_type=stable-diffusion-triple-guidance",
+                 "system.guidance!=" + json.dumps(g)]
+    elif run == "perp_neg":
+        argv.append("system.prompt_processor.use_perp_neg=true")
+    return argv
+
+
+def batchnorm_from_input(module, rgb):
+    """A copy of a NormalBae whose BatchNorm statistics are those of its
+    forward on ``rgb``. With identity statistics (the random weights of a
+    run without ``scannet.pt``) the encoder's activations grow from stage
+    to stage and its output depends chaotically on rounding (the card's
+    fp64 and fp32 forwards differ as much as the card and the CPU), so a
+    card-vs-CPU check of it holds nothing; with these it is
+    well-conditioned."""
+    import copy
+
+    m = copy.deepcopy(module)
+    for bn in m.modules():
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            bn.reset_running_stats()
+            bn.momentum = None
+    m.train()
+    with torch.no_grad():
+        m.detect(rgb)
+    return m.eval()
+
+
+def check_detectors(system, dm) -> dict:
+    """HED (edge map and scribble) and NormalBae of the triple guidance on
+    one render of view 0, on the card and, from a copy of the same
+    modules, on the CPU; their card times. NormalBae is held with its
+    BatchNorm statistics taken from the render (``batchnorm_from_input``);
+    as the run used it, card and CPU are only reported, beside the card's
+    fp64 forward, which shows how far rounding alone moves it. TF32 is as
+    the caller set it."""
+    import copy
+
+    g = system.guidance
+    batch = dm.collate(step=0)
+    rgb = torch.clamp(system.render(batch["gbuffer"], batch["env_id"], batch.get("light_table"))
+                      ["comp_rgb"], 0, 1).permute(2, 0, 1)[None].contiguous()
+    res = {"hw": list(rgb.shape[-2:]), "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+    for name, module, call in (
+            ("hed_edge", g._hed, lambda m, x: m.detect(x)),
+            ("hed_scribble", g._hed, lambda m, x: m.detect(x, scribble=True)),
+            ("normalbae_as_run", g._normalbae, lambda m, x: m.detect(x)),
+            ("normalbae", batchnorm_from_input(g._normalbae, rgb), lambda m, x: m.detect(x))):
+        cpu_module = copy.deepcopy(module).cpu()
+        with torch.no_grad():
+            card = call(module, rgb)
+            ms = cuda_ms(lambda: call(module, rgb), 3)
+            t0 = time.time()
+            cpu = call(cpu_module, rgb.cpu())
+            cpu_s = time.time() - t0
+        diff = (card.cpu() - cpu).abs()
+        res[name] = {"max_abs": diff.max().item(), "share_over_0.5": float((diff > 0.5).float()
+                                                                          .mean()),
+                     "card_ms": ms, "cpu_s": cpu_s, "mean": float(card.mean())}
+        if name == "normalbae_as_run":
+            with torch.no_grad():
+                card64 = copy.deepcopy(module).double().detect(rgb.double())
+            d64 = (card64 - card.double()).abs()
+            res[name].update(card_fp64_max_abs=d64.max().item(),
+                             card_fp64_share_over_0_5=float((d64 > 0.5).float().mean()))
+            del card64
+        del cpu_module
+    return res
+
+
+def drive_texcraft(work: str, device: str = "cuda", size: str = "sd21", views: int = 4,
+                   steps=(3, 2, 1), torus=(192, 96), playground_size: int = 512,
+                   playground_steps: int = 3) -> dict:
+    """Main path 6 through ``launch_torch.py --train`` of
+    ``configs/texcraft.yaml`` on the torus of main path 3: run ``sds``
+    (the config's SDS guidance, ``steps[0]`` steps), ``triple`` (the triple
+    guidance with depth, canny, HED and NormalBae ControlNets, ``steps[1]``)
+    and ``perp_neg`` (Perp-Neg SDS, ``steps[2]``); ``views`` fixed views, 1
+    test view, no export (main path 3 has it). Then the 2D playground
+    (``playground_2d_torch.main``). Per run: finite losses, the field
+    moved, the test PNG; on the card also kernel A's launches per step
+    (32, 32 + 14 per ControlNet, 32) and their batch (2, 3, 4), no
+    backward launch, and kernel B in the prerender. The triple run's
+    detectors are compared on the card with the CPU. Returns what was
+    measured; raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    import playground_2d_torch
+    from dreammat_tpu_torch.data.datamodule import RandomCameraDataModule
+    from dreammat_tpu_torch.models import mesh as mesh_lib
+    from dreammat_tpu_torch.models.renderer import RaytraceRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.systems.dreammat import DreamMat
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    v, f = mesh_lib.torus_arrays(0.7, 0.28, *torus)
+    obj = mesh_lib.write_obj(os.path.join(work, "torus.obj"), v, f)
+    per_step = {"sds": UNET_ATTENTIONS, "perp_neg": UNET_ATTENTIONS,
+                "triple": UNET_ATTENTIONS + len(TEXCRAFT_CONTROLS) * CONTROLNET_ATTENTIONS}
+    kernels_a = (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+                 attn.flash_attention_bwd_dkv)
+    res = {"runs": {}}
+    real_export = DreamMat.export
+    DreamMat.export = lambda self, *a, **k: None  # main path 3 has the export
+    try:
+        for run, n_steps in zip(("sds", "triple", "perp_neg"), steps):
+            stages = StageLaunches()
+            stages.wrap(RaytraceRenderer, "configure", "configure_and_bake")
+            stages.wrap(RaytraceRenderer, "build_gbuffers_batched", "prerender_gbuffers")
+            stages.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
+            stages.wrap(RaytraceRenderer, "build_gbuffer", "test_gbuffers")
+            for fn in kernels_a + (bvh_lib.cast_rays_dense,):
+                fn.launches = 0
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            try:
+                with AttentionBatches() as batches:
+                    out = launch_torch.main(texcraft_argv(work, obj, device, size, run, n_steps,
+                                                          views))
+            finally:
+                stages.restore()
+            sync()
+            system, dm, trial = out["system"], out["datamodule"], out["trial_dir"]
+            step_s = list(system.step_seconds)
+            r = {"seconds": time.time() - t0, "guidance": type(system.guidance).__name__,
+                 "launches": {"flash_attn_fwd": attn.flash_attention_fwd.launches,
+                              "ray_cast": bvh_lib.cast_rays_dense.launches},
+                 "flash_attn_fwd_by_batch": dict(batches.counts),
+                 "backward_launches": kernels_a[1].launches + kernels_a[2].launches,
+                 "ray_cast_by_stage": dict(stages.counts), "stage_s": dict(stages.seconds),
+                 "prerender_s": dict(dm.data.seconds), "step_s": step_s,
+                 "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+                 "losses": list(system.step_losses), "step_peak_gb": list(system.step_peak_gb),
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+            if len(r["losses"]) != n_steps or not all(math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"path 6 {run}: losses {r['losses']}")
+            ref = system.geometry.init(torch.Generator(device=device).manual_seed(
+                out["cfg"].seed))
+            r["moved"] = max((p.detach() - q.detach()).abs().max().item()
+                             for p, q in zip(system.field.parameters(), ref.parameters()))
+            if not r["moved"] > 0:
+                raise AssertionError(f"path 6 {run}: the field did not move")
+            r["test_png"] = check_file(os.path.join(trial, "save", f"it{n_steps}-test", "0.png"),
+                                       b"\x89PNG\r\n\x1a\n", 100)
+            want = {TEXCRAFT_BATCH[run]: per_step[run] * n_steps}
+            if cuda and (r["flash_attn_fwd_by_batch"] != want or r["backward_launches"]
+                         or r["launches"]["flash_attn_fwd"] != per_step[run] * n_steps):
+                raise AssertionError(f"path 6 {run}: kernel A launches by batch "
+                                     f"{r['flash_attn_fwd_by_batch']} (expected {want}), "
+                                     f"backward {r['backward_launches']}")
+            if cuda and not (stages.counts["configure_and_bake"] > 0
+                             and stages.counts["prerender_gbuffers"] > 0):
+                raise AssertionError(f"path 6 {run}: kernel B by stage {stages.counts}")
+            if run == "triple":
+                if not (len(system.guidance.controlnets) == len(TEXCRAFT_CONTROLS)
+                        and system.guidance._hed is not None
+                        and system.guidance._normalbae is not None):
+                    raise AssertionError("the triple guidance lacks a ControlNet or a detector")
+                if cuda:
+                    d = res["detectors"] = check_detectors(system, dm)
+                    nr = d["normalbae_as_run"]
+                    log(f"texcraft: detectors on a {d['hw'][0]}^2 render, card vs CPU (cuDNN "
+                        f"TF32 {'on' if d['cudnn_tf32'] else 'off'}): "
+                        + "; ".join(f"{k} max|diff| {d[k]['max_abs']:.3e}, "
+                                    f"{100 * d[k]['share_over_0.5']:.3f}% of values off by "
+                                    f"over 0.5, card {d[k]['card_ms']:.3f} ms, CPU "
+                                    f"{d[k]['cpu_s']:.2f} s"
+                                    for k in ("hed_edge", "hed_scribble", "normalbae",
+                                              "normalbae_as_run"))
+                        + f" (as run, the card's fp64 forward against its fp32: max|diff| "
+                        f"{nr['card_fp64_max_abs']:.3e}, "
+                        f"{100 * nr['card_fp64_share_over_0_5']:.3f}% over 0.5)")
+                    # edge and normal maps within 1e-3 and one 8-bit level; the
+                    # binary scribble map on all but 1% of its values
+                    if not (d["hed_edge"]["max_abs"] <= 1e-3
+                            and d["normalbae"]["max_abs"] <= 1.0 / 255.0
+                            and d["hed_scribble"]["share_over_0.5"] <= 1e-2):
+                        raise AssertionError(f"detectors on the card vs the CPU: {d}")
+            log(f"texcraft {run} ({r['guidance']}): launch_torch.py --train in "
+                f"{r['seconds']:.1f}s; kernel A {r['launches']['flash_attn_fwd']} launches by "
+                f"batch {r['flash_attn_fwd_by_batch']}, backward {r['backward_launches']}; "
+                f"kernel B {r['launches']['ray_cast']} by stage {r['ray_cast_by_stage']}; "
+                f"prerender " + ", ".join(f"{k} {x:.3f}s" for k, x in r["prerender_s"].items())
+                + f"; steps {', '.join(f'{x:.4f}s' for x in step_s)} (warm "
+                f"{r['warm_step_s']:.4f}s), peak "
+                f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])} (run "
+                f"{r['peak_gb'] or 0:.2f} GB); losses "
+                f"{', '.join(f'{x:.6g}' for x in r['losses'])}; field max |moved| "
+                f"{r['moved']:.3e}")
+            res["runs"][run] = r
+            del out, system, dm
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        DreamMat.export = real_export
+
+    for fn in kernels_a:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with AttentionBatches() as batches:
+        pg = playground_2d_torch.main([
+            "--prompt", "a ceramic vase", "--model-size", "tiny" if size == "tiny" else "sd21",
+            "--size", str(playground_size), "--steps", str(playground_steps),
+            "--out", os.path.join(work, "playground"), "--device", device])
+    sync()
+    p = {"seconds": time.time() - t0, "losses": pg["losses"], "step_s": pg["step_seconds"],
+         "warm_step_s": float(np.mean(pg["step_seconds"][1:] or pg["step_seconds"])),
+         "flash_attn_fwd_by_batch": dict(batches.counts),
+         "backward_launches": kernels_a[1].launches + kernels_a[2].launches,
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+         "final_png": check_file(pg["final"], b"\x89PNG\r\n\x1a\n", 100)}
+    if len(p["losses"]) != playground_steps or not all(math.isfinite(x) for x in p["losses"]):
+        raise AssertionError(f"playground losses {p['losses']}")
+    want = {3: UNET_ATTENTIONS * playground_steps}
+    if cuda and (p["flash_attn_fwd_by_batch"] != want or p["backward_launches"]):
+        raise AssertionError(f"playground: kernel A by batch {p['flash_attn_fwd_by_batch']} "
+                             f"(expected {want}), backward {p['backward_launches']}")
+    log(f"texcraft playground {playground_size}^2: {playground_steps} steps in "
+        f"{p['seconds']:.1f}s (steps {', '.join(f'{x:.4f}s' for x in p['step_s'])}, warm "
+        f"{p['warm_step_s']:.4f}s, peak {p['peak_gb'] or 0:.2f} GB); kernel A by batch "
+        f"{p['flash_attn_fwd_by_batch']}; losses {', '.join(f'{x:.6g}' for x in p['losses'])}")
+    res["playground"] = p
+    del pg
+    return res
+
+
+def phase_texcraft() -> dict:
+    """Main path 6 on the card (``drive_texcraft`` at SD2.1 width, 512^2)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_texcraft")
+    res = drive_texcraft(work)
+    runs = res["runs"]
+    res["counts"] = {k: sum(r["launches"][k] for r in runs.values())
+                     for k in ("flash_attn_fwd", "ray_cast")}
+    res["counts"]["flash_attn_fwd"] += sum(res["playground"]["flash_attn_fwd_by_batch"].values())
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1671,6 +2023,8 @@ def main() -> int:
     sass = check_sass()
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_res = phase_attention(gen)
+    # the texcraft path's batches: SDS (2 replicas) and Perp-Neg SDS (4)
+    attn_sds = {B: phase_attention(gen, B) for B in (2, 4)}
     import yaml
 
     with open(TRAIN_CONFIG) as f:
@@ -1682,7 +2036,8 @@ def main() -> int:
     l_counts = {"flash_attn_fwd": None, "ray_cast": None}
     u_counts = {"flash_attn_fwd": None, "ray_cast": None}
     o_counts = {"flash_attn_fwd": None, "ray_cast": None}
-    main_res = cn_res = launch_res = user_res = opt_res = None
+    t_counts = {"flash_attn_fwd": None, "ray_cast": None}
+    main_res = cn_res = launch_res = user_res = opt_res = tex_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -1695,6 +2050,8 @@ def main() -> int:
         u_counts = user_res["counts"]
         opt_res = phase_options(cast_res["clock"], main_res["warm_step_s"])
         o_counts = opt_res["counts"]
+        tex_res = phase_texcraft()
+        t_counts = tex_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -1710,11 +2067,23 @@ def main() -> int:
                               "controlnet_training": cn_counts["flash_attn_fwd"],
                               "dreammat_launch_torus": l_counts["flash_attn_fwd"],
                               "dreammat_user_files": u_counts["flash_attn_fwd"],
-                              "dreammat_options": o_counts["flash_attn_fwd"]},
+                              "dreammat_options": o_counts["flash_attn_fwd"],
+                              "texcraft": t_counts["flash_attn_fwd"],
+                              "texcraft_by_run_and_batch": tex_res and {
+                                  **{run: r["flash_attn_fwd_by_batch"]
+                                     for run, r in tex_res["runs"].items()},
+                                  "playground": tex_res["playground"]["flash_attn_fwd_by_batch"]}},
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
              "lib_graph_ms", "bound_ms", "by")},
-         "max_abs_err": max(r["max_err"] for r in attn_res["rows"]),
+         "sds_batches": {f"b{B}": {"max_abs_err": max(r["max_err"] for r in res["rows"]),
+                                   **{k: max(res["rows"], key=lambda r: r["N"] * r["M"])[k]
+                                      for k in ("N", "M", "H", "ms", "graph_ms", "host_us",
+                                                "plain_ms", "lib_ms", "lib_graph_ms",
+                                                "bound_ms", "by")}}
+                         for B, res in attn_sds.items()},
+         "max_abs_err": max(r["max_err"] for res in (attn_res, *attn_sds.values())
+                            for r in res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["by"], "library_ms": a["lib_ms"], "graph_ms": a["graph_ms"],
          "host_us": a["host_us"], "library_graph_ms": a["lib_graph_ms"],
@@ -1753,7 +2122,11 @@ def main() -> int:
                               "dreammat_options": o_counts["ray_cast"],
                               "dreammat_options_by_stage": opt_res and {
                                   run: r["ray_cast_by_stage"]
-                                  for run, r in opt_res["runs"].items()}},
+                                  for run, r in opt_res["runs"].items()},
+                              "texcraft": t_counts["ray_cast"],
+                              "texcraft_by_stage": tex_res and {
+                                  run: r["ray_cast_by_stage"]
+                                  for run, r in tex_res["runs"].items()}},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff")}
                      for r in ((launch_res["ray_cast"] if launch_res else [])
@@ -1767,7 +2140,8 @@ def main() -> int:
                  f"tested after the cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
-        json.dump({"attention": attn_res, "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
+        json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
+                   "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,
                    "card": card}, f, indent=1,

@@ -1,5 +1,5 @@
 """Components of the ported path (importing registers them)."""
 
 from dreammat_tpu_torch.models import (  # noqa: F401
-    exporter, geometry, guidance, material, prompt, renderer,
+    exporter, geometry, guidance, guidance_sds, guidance_triple, material, prompt, renderer,
 )

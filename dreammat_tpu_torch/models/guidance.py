@@ -90,7 +90,8 @@ class StableDiffusionLightGuidance(BaseObject):
         tiny = cfg.model_size == "tiny"
         self.unet_cfg = UNetConfig.tiny() if tiny else UNetConfig.sd21()
         self.vae_cfg = VAEConfig.tiny() if tiny else VAEConfig.sd()
-        channels = {"light": 22, "depth": 3, "normal": 3}
+        # subclasses (the triple guidance) extend the control-type set
+        channels = getattr(self, "_cn_channels", {"light": 22, "depth": 3, "normal": 3})
         self.controlnet_cfgs = [
             ControlNetConfig(unet=self.unet_cfg, conditioning_channels=channels[ct],
                              conditioning_embedding_channels=(16, 32) if tiny else (16, 32, 96, 256))
@@ -156,29 +157,58 @@ class StableDiffusionLightGuidance(BaseObject):
                          down_block_additional_residuals=down,
                          mid_block_additional_residual=mid)
 
-    def _image_conditions(self, condition_map: torch.Tensor) -> List[torch.Tensor]:
-        """condition_map [B,22,h,w] -> per control type, at guidance resolution."""
+    def _prep_condition(self, cond: torch.Tensor, want_channels: Optional[int] = None):
+        """A condition at guidance resolution; one channel repeated to three
+        for the depth ControlNets."""
         cfg = self.cfg
+        if want_channels == 3 and cond.shape[1] == 1:
+            cond = cond.repeat(1, 3, 1, 1)
+        if cond.shape[2] != cfg.height or cond.shape[3] != cfg.width:
+            cond = F.interpolate(cond, size=(cfg.height, cfg.width), mode="bilinear",
+                                 align_corners=False, antialias=True)
+        return cond
 
-        def prep(cond, want_channels=None):
-            if want_channels == 3 and cond.shape[1] == 1:
-                cond = cond.repeat(1, 3, 1, 1)
-            if cond.shape[2] != cfg.height or cond.shape[3] != cfg.width:
-                cond = F.interpolate(cond, size=(cfg.height, cfg.width), mode="bilinear",
-                                     align_corners=False, antialias=True)
-            return cond
-
+    def _image_conditions(self, condition_map: Optional[torch.Tensor],
+                          rgb: Optional[torch.Tensor] = None) -> Optional[List[torch.Tensor]]:
+        """condition_map [B,22,h,w] -> per control type, at guidance
+        resolution. ``rgb`` is the rendered image [B,3,H,W], which the
+        render-derived control types of the triple guidance read."""
+        if condition_map is None:
+            return None
         out = []
-        for ct in cfg.control_types:
+        for ct in self.cfg.control_types:
             if ct == "light":
-                out.append(prep(condition_map))
+                out.append(self._prep_condition(condition_map))
             elif ct == "depth":
-                out.append(prep(condition_map[:, 0:1], want_channels=3))
+                out.append(self._prep_condition(condition_map[:, 0:1], want_channels=3))
             elif ct == "normal":
-                out.append(prep(condition_map[:, 1:4]))
+                out.append(self._prep_condition(condition_map[:, 1:4]))
             else:
                 raise ValueError(f"unsupported control type {ct}")
         return out
+
+    def _controls(self, condition_map, rgb, step: int):
+        """The ControlNets' conditions and scales at ``step`` (None and []
+        without ControlNets). The conditions are built without gradient from
+        ``rgb.detach()``: the noise prediction they feed runs under no_grad
+        (the JAX package stop-gradients it), so no gradient could reach
+        ``rgb`` through a condition."""
+        if not self.cfg.use_controlnet:
+            return None, []
+        with torch.no_grad():
+            image_cond = self._image_conditions(condition_map, rgb=rgb.detach())
+        return image_cond, self.condition_scales_at(step)
+
+    def _timesteps(self, B: int, step: int, draws):
+        """(t [B], min_step, max_step): t uniform over the scheduled window,
+        from the ``t`` draw."""
+        cfg = self.cfg
+        T = self.num_train_timesteps
+        min_step = int(round(T * C(cfg.min_step_percent, step)))
+        max_step = int(round(T * C(cfg.max_step_percent, step)))
+        u = draws.uniform("t", (B,))
+        t = (min_step + u * float(max_step - min_step + 1)).to(torch.int64)
+        return torch.clamp(t, 0, T - 1), min_step, max_step
 
     def condition_scales_at(self, step: int) -> List[float]:
         cfg = self.cfg
@@ -201,17 +231,11 @@ class StableDiffusionLightGuidance(BaseObject):
         lat_shape = (B, self.vae_cfg.latent_channels, rgb.shape[2] // f, rgb.shape[3] // f)
         latents = self.encode_images(rgb, draws.normal("vae_eps", lat_shape))
 
-        T = self.num_train_timesteps
-        min_step = int(round(T * C(cfg.min_step_percent, step)))
-        max_step = int(round(T * C(cfg.max_step_percent, step)))
-        u = draws.uniform("t", (B,))
-        t = (min_step + u * float(max_step - min_step + 1)).to(torch.int64)
-        t = torch.clamp(t, 0, T - 1)
+        t, min_step, max_step = self._timesteps(B, step, draws)
         noise = draws.normal("noise", tuple(latents.shape))
         latents_noisy = add_noise(self.schedule, latents, noise, t)
 
-        scales = self.condition_scales_at(step) if cfg.use_controlnet else []
-        image_cond = self._image_conditions(condition_map) if cfg.use_controlnet else None
+        image_cond, scales = self._controls(condition_map, rgb, step)
         eps_perpneg = None
         if prompt_utils.use_perp_neg:
             text_embeddings, neg_w = prompt_utils.get_text_embeddings_perp_neg(

@@ -64,8 +64,10 @@ class PromptEmbeddings(NamedTuple):
         return torch.where(elevation > overhead_th, torch.full_like(idx, 3), idx)
 
     def get_text_embeddings(self, elevation, azimuth, camera_distances,
-                            view_dependent_prompting: bool = True) -> torch.Tensor:
-        """[3B, N, D]: text, uncond, null (cond first)."""
+                            view_dependent_prompting: bool = True,
+                            return_null: bool = True) -> torch.Tensor:
+        """[3B, N, D]: text, uncond, null (cond first); [2B, N, D] without
+        the null rows."""
         B = elevation.shape[0]
         if view_dependent_prompting:
             d = self.direction_idx(elevation, azimuth)
@@ -73,14 +75,18 @@ class PromptEmbeddings(NamedTuple):
         else:
             text = self.text[None].expand(B, *self.text.shape)
             uncond = self.uncond[None].expand(B, *self.uncond.shape)
+        if not return_null:
+            return torch.cat([text, uncond], dim=0)
         null = self.null[None].expand(B, *self.null.shape)
         return torch.cat([text, uncond, null], dim=0)
 
-    def get_text_embeddings_perp_neg(self, elevation, azimuth, camera_distances):
+    def get_text_embeddings_perp_neg(self, elevation, azimuth, camera_distances,
+                                     return_null: bool = True):
         """([5B, N, D], [B, 2]): the positive (interpolated between the
         neighbouring direction prompts), uncond, the two negatives
-        interleaved per sample ([n0(b0), n1(b0), n0(b1), ...]) and null; and
-        the negatives' guidance weights (0 overhead)."""
+        interleaved per sample ([n0(b0), n1(b0), n0(b1), ...]) and null
+        ([4B, N, D] without it); and the negatives' guidance weights (0
+        overhead)."""
         B = elevation.shape[0]
         d = self.direction_idx(elevation, azimuth)
         azi = shift_azimuth_deg(azimuth)
@@ -110,8 +116,10 @@ class PromptEmbeddings(NamedTuple):
         w1 = torch.where(d == 3, torch.zeros_like(w1), w1)
 
         negs = torch.stack([neg0, neg1], dim=1).reshape(2 * B, *neg0.shape[1:])
-        null = self.null[None].expand(B, *self.null.shape)
-        return torch.cat([pos, uncond, negs, null], dim=0), torch.stack([w0, w1], dim=-1)
+        parts = [pos, uncond, negs]
+        if return_null:
+            parts.append(self.null[None].expand(B, *self.null.shape))
+        return torch.cat(parts, dim=0), torch.stack([w0, w1], dim=-1)
 
 
 @dreammat_tpu_torch.register("stable-diffusion-prompt-processor")

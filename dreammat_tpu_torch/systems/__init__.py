@@ -1,3 +1,3 @@
 """Training systems (importing registers them)."""
 
-from dreammat_tpu_torch.systems import controlnet_trainer, dreammat  # noqa: F401
+from dreammat_tpu_torch.systems import controlnet_trainer, dreammat, texcraft  # noqa: F401

@@ -4,15 +4,18 @@
   afterwards no ``jax``, ``jaxlib``, ``flax``, ``optax`` or
   ``dreammat_tpu`` module may be in ``sys.modules``.
 - The entry points (system, datamodule, guidance, prompt processor,
-  renderer, ControlNet trainer, mesh exporter, ``launch_torch.py``,
-  ``generate_controlnet_data_torch.py``) and the public functions that
-  place tensors (schedule, meshes, BVH, FG LUT, eval-camera rays, the texel
-  rasterizer, the debiasing BERT, the ControlNet dataset generator) take
+  renderer, ControlNet trainer, mesh exporter, the texcraft system, the
+  SDS and triple guidances, ``launch_torch.py``,
+  ``generate_controlnet_data_torch.py``, ``playground_2d_torch.py``) and
+  the public functions that place tensors (schedule, meshes, BVH, FG LUT,
+  eval-camera rays, the texel rasterizer, the debiasing BERT, the
+  ControlNet dataset generator, the HED and NormalBae loaders) take
   ``device``, default to
   CUDA, and raise without a GPU unless the caller passes ``device="cpu"``
   (``--device cpu``).
-- ``launch_torch.py`` and ``generate_controlnet_data_torch.py`` import
-  nothing of JAX either.
+- ``launch_torch.py``, ``generate_controlnet_data_torch.py``,
+  ``playground_2d_torch.py`` and ``webapp_torch.py`` import nothing of JAX
+  either.
 - No source file of the port calls PyTorch's fused attention.
 """
 
@@ -71,7 +74,8 @@ def _tiny_cfg():
 
 
 @pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer", "exporter",
-                                   "prompt_processor"])
+                                   "prompt_processor", "texcraft_system", "sds_guidance",
+                                   "triple_guidance"])
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -90,6 +94,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
             {"texture_size": 8}, sys_cpu.geometry, sys_cpu.material, **kw),
         "prompt_processor": lambda **kw: find("stable-diffusion-prompt-processor")(
             cfg.system["prompt_processor"], **kw),
+        "texcraft_system": lambda **kw: find("texcraft-system")(
+            {**cfg.system, "guidance_type": "stable-diffusion-guidance"}, **kw),
+        "sds_guidance": lambda **kw: find("stable-diffusion-guidance")(
+            {"model_size": "tiny", "cache_dir": None}, **kw),
+        "triple_guidance": lambda **kw: find("stable-diffusion-triple-guidance")(
+            {"model_size": "tiny", "cache_dir": None, "use_controlnet": True,
+             "control_types": ["hed", "normal"], "normalbae_detect_resolution": 32}, **kw),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
@@ -98,7 +109,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
 
 def _default_device_calls(tmp_path):
     from dreammat_tpu_torch.data import cameras, controlnet_dataset
-    from dreammat_tpu_torch.models import debias, exporter, mesh
+    from dreammat_tpu_torch.models import debias, detectors, exporter, mesh
     from dreammat_tpu_torch.models.diffusion import scheduler
     from dreammat_tpu_torch.ops import bvh, envmap
 
@@ -119,6 +130,8 @@ def _default_device_calls(tmp_path):
         "rasterize_uv_texels": lambda **kw: exporter.rasterize_uv_texels(
             np.float32([[0, 0], [1, 0], [0, 1]]), np.int64([[0, 1, 2]]), 4, **kw),
         "build_bert_mlm": lambda **kw: debias.build_bert_mlm(None, size="tiny", **kw),
+        "load_hed": lambda **kw: detectors.load_hed(None, **kw),
+        "load_normalbae": lambda **kw: detectors.load_normalbae(None, **kw),
         "generate_dataset_for_mesh": lambda **kw: controlnet_dataset.generate_dataset_for_mesh(
             str(obj), str(tmp_path / "data"), n_views=1, n_envs=1, resolution=4,
             material_cfg={"environment_texture": str(tmp_path / "none"), "n_environments": 1,
@@ -131,7 +144,7 @@ def _default_device_calls(tmp_path):
                                   "mesh_from_numpy", "load_mesh", "build_bvh",
                                   "compute_fg_lut", "camera_rays_and_matrices",
                                   "rasterize_uv_texels", "build_bert_mlm",
-                                  "generate_dataset_for_mesh"])
+                                  "generate_dataset_for_mesh", "load_hed", "load_normalbae"])
 def test_functions_default_to_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -193,6 +206,32 @@ def test_generate_controlnet_data_torch_needs_cuda_and_imports_nothing_of_jax(tm
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-2:] == ["raised True", "[]"]
+
+
+@pytest.mark.parametrize("script", ["playground_2d_torch", "webapp_torch"])
+def test_new_root_scripts_import_nothing_of_jax(script):
+    """The playground and the web app import no module of JAX; the
+    playground's ``main`` without ``--device cpu`` raises for want of a GPU,
+    after importing the port."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    code = f"import sys\nimport {script} as app\n"
+    if script == "playground_2d_torch":
+        code += ("try:\n"
+                 "    app.main(['--prompt', 'x', '--steps', '1', '--out', 'outputs/none'])\n"
+                 "    print('ran')\n"
+                 "except RuntimeError as e:\n"
+                 "    print('raised', 'CUDA' in str(e), 'dreammat_tpu_torch' in sys.modules)\n")
+    code += f"print(repr(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]"
+    if script == "playground_2d_torch":
+        assert lines[-2] == "raised True True"
 
 
 def test_no_fused_attention_call():
