@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about five minutes
+    python3 chip_smoke.py                 # everything, about six minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -15,7 +15,8 @@ which fails the run on any error:
 3. Kernel A (flash-attention forward) against ``attention_plain`` at every
    attention shape of the SD2.1 UNet and ControlNet (B = 3 CFG replicas,
    bf16; then B = 2 and B = 4, the batches of the SDS guidance without and
-   with Perp-Neg): max and mean error of O, max error of the log-sum-exp, the
+   with Perp-Neg; then the volume path's shapes, main path 7): max and mean
+   error of O, max error of the log-sum-exp, the
    kernel's time (CUDA events over many launches; device time from a
    CUDA-graph replay of 20 launches; host microseconds per launch), the
    plain version's, the bound, and
@@ -23,8 +24,9 @@ which fails the run on any error:
    ways, as a yardstick.
 4. Kernels C and D (flash-attention backward, dq and dk/dv) against
    ``attention_backward_plain`` at every attention shape of ControlNet
-   training (SD2.1 width, 32^2 latents, the training batch) and at B=3,
-   N=M=4096: max and mean error and cosine of dq, dk, dv, each kernel's
+   training (SD2.1 width, 32^2 latents, the training batch), at B=3,
+   N=M=4096 and at B = 1 at the volume path's shapes (main path 7): max and
+   mean error and cosine of dq, dk, dv, each kernel's
    times as above, the plain version's, the bounds, and the autograd
    backward of ``scaled_dot_product_attention`` as a yardstick (its graph
    time is a graph of forward and backward less one of the forward); then autograd through
@@ -139,7 +141,29 @@ which fails the run on any error:
    Each run's seconds, warm step and peak memory are printed. The same
    runs go on the CPU at tiny size with ``drive_texcraft(work,
    device="cpu", size="tiny", torus=(24, 12), playground_size=32)``.
-12. A ``{"kernels": [...]}`` line, the card's line, and last
+12. Main path 7: the NeRF-volume family (``drive_volume``), through
+   ``launch_torch.main(["--config", "configs/dreamfusion.yaml", "--train",
+   ...])`` (SDS over a NeRF volume at 64^2, as written) and the same with
+   ``configs/prolificdreamer.yaml`` (the VSD coarse stage; its background
+   block replaced, its ``random_aug`` does not parse; 128^2 renders, cut
+   from 512^2: the dense renderer's 512 samples a ray and the hash grid's
+   backward state would take about 430 GB) at SD2.1 width, random weights,
+   3 steps with the occupancy refresh every 2 steps, 1 test view, the
+   isosurface export at level ``VOLUME_ISO_LEVEL``. Per run: finite losses,
+   the test PNG, the gif and ``model.obj`` with vertices and faces, the
+   grid refreshed at init and at steps 0 and 2; ProlificDreamer's LoRA
+   factors and camera embedding moved and its frozen UNet unchanged (per
+   tensor checksums); kernel A by batch, C and D exactly as
+   ``VOLUME_PER_STEP`` says (SDS 32 at B = 2 a step; VSD 64 at B = 2 and
+   32 at B = 1, C 32 and D 32: the LoRA regression backpropagates through
+   the whole UNet); 2048 rays of eval view 0 rendered by the trained scene
+   on the card and on the CPU within 2e-3. The kernel phase checks A at B = 2 and 1 and C and D at
+   B = 1 at every attention shape of 16^2 and 8^2 latents
+   (``VOLUME_ATTN_SHAPES``: N down to 1, self and N x 77). Each run's
+   seconds, warm step, peak memory and test-view seconds are printed. The
+   same runs go on the CPU at tiny size with ``drive_volume(work,
+   device="cpu", size="tiny")``.
+13. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -380,14 +404,14 @@ def phase_build(out_dir: str) -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_attention(gen: torch.Generator, B: int = ATTN_B) -> dict:
+def phase_attention(gen: torch.Generator, B: int = ATTN_B, shapes=ATTN_SHAPES) -> dict:
     import torch.nn.functional as F
 
     from dreammat_tpu_torch.ops import attention as attn
 
     D = ATTN_D
     rows = []
-    for N, M, H in ATTN_SHAPES:
+    for N, M, H in shapes:
         q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda").to(torch.bfloat16)
                    for n in (N, M, M))
         out, lse = attn.flash_attention_fwd(q, k, v)
@@ -468,17 +492,20 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
                                                  dim=0).item()
 
 
-def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
+def phase_attention_bwd(gen: torch.Generator, batch: int, cases=None,
+                        autograd_check: bool = True) -> dict:
     """Kernels C and D against the plain backward (fp32 FlashAttention-2
-    equations) at the training shapes; tolerance cosine >= 0.999 and max
-    error <= 2e-2 max|ref| for each of dq, dk, dv (the kernels round p and ds
-    to bf16 before their products, as the TPU kernels do)."""
+    equations) at the training shapes (or the (B, N, M, H) ``cases``);
+    tolerance cosine >= 0.999 and max error <= 2e-2 max|ref| for each of dq,
+    dk, dv (the kernels round p and ds to bf16 before their products, as the
+    TPU kernels do)."""
     import torch.nn.functional as F
 
     from dreammat_tpu_torch.ops import attention as attn
 
     D = ATTN_D
-    cases = [(batch, N, M, H) for N, M, H in TRAIN_ATTN_SHAPES] + [(3, 4096, 4096, 5)]
+    if cases is None:
+        cases = [(batch, N, M, H) for N, M, H in TRAIN_ATTN_SHAPES] + [(3, 4096, 4096, 5)]
     rows = []
     for B, N, M, H in cases:
         q, k, v = (torch.randn(B, n, H, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -495,7 +522,16 @@ def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
             e = (got.float() - r).abs()
             errs[name] = dict(max=e.max().item(), mean=e.mean().item(), cos=_cosine(got, r),
                               ref_max=r.abs().max().item())
-            if not (errs[name]["cos"] >= 0.999 and errs[name]["max"] <= 2e-2 * errs[name]["ref_max"]):
+            if M == 1 and name != "dv":
+                # one key: the softmax is constant, so ds = p (dO.v - D) and
+                # with it dq and dk are exactly zero; both sides hold only the
+                # fp32 rounding of dO.v - D (~1e-6), and a cosine of two
+                # rounding noises says nothing
+                ok = errs[name]["max"] <= 1e-4
+            else:
+                ok = errs[name]["cos"] >= 0.999 and \
+                    errs[name]["max"] <= 2e-2 * errs[name]["ref_max"]
+            if not ok:
                 raise AssertionError(f"attention backward B={B} N={N} M={M} H={H} {name}: "
                                      f"{errs[name]}")
         del ref
@@ -548,6 +584,8 @@ def phase_attention_bwd(gen: torch.Generator, batch: int) -> dict:
             f"{bounds['dkv'][2] / dkv_g / 1e9:.1f} TFLOP/s; sdpa {lib['dkv']:.4f}, graph "
             f"{lib['dkv_graph']:.4f}, host {lib['dkv_host']:.1f} us), plain {plain_ms:.4f} ms")
         del q, k, v, do, out, lse, delta, dq, dk, dv
+    if not autograd_check:
+        return {"rows": rows}
 
     # autograd through attention() against the plain forward and backward
     B, N, M, H = batch, 256, 77, 10
@@ -1996,6 +2034,273 @@ def phase_texcraft() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 7: the NeRF-volume family
+# ---------------------------------------------------------------------------
+
+# (N, M, H) of every D=64 attention of the SD2.1 UNet on the volume path:
+# 16^2 latents (ProlificDreamer's 128^2 renders) and 8^2 latents
+# (DreamFusion's 64^2): self-attention at each down level with attention and
+# the mid block, and cross-attention to the 77 text tokens at each
+VOLUME_ATTN_SHAPES = {
+    "latent16": [(256, 256, 5), (64, 64, 10), (16, 16, 20), (4, 4, 20),
+                 (256, 77, 5), (64, 77, 10), (16, 77, 20), (4, 77, 20)],
+    "latent8": [(64, 64, 5), (16, 16, 10), (4, 4, 20), (1, 1, 20),
+                (64, 77, 5), (16, 77, 10), (4, 77, 20), (1, 77, 20)],
+}
+VOLUME_RUNS = ("dreamfusion", "prolificdreamer")
+# kernel launches per step: SDS, two replicas (text, uncond); VSD, the
+# pretrained CFG pass (B = 2), the LoRA branch's camera CFG pass (B = 2) and
+# the regression (B = 1) with its backward, which needs dq, dk and dv at
+# every attention (LoRA on to_q, to_k and to_v of both attentions)
+VOLUME_PER_STEP = {
+    "dreamfusion": {"fwd_by_batch": {2: UNET_ATTENTIONS}, "dq": 0, "dkv": 0},
+    "prolificdreamer": {"fwd_by_batch": {2: 2 * UNET_ATTENTIONS, 1: UNET_ATTENTIONS},
+                        "dq": UNET_ATTENTIONS, "dkv": UNET_ATTENTIONS},
+}
+# the isosurface level of the export: a field 3 steps from its blob
+# (density 10 at the centre, falling to 0 at radius 0.5) has no level at the
+# configs' 25, so the smoke runs extract the level 5
+VOLUME_ISO_LEVEL = 5.0
+# the configs cut to the CPU tiny form
+VOLUME_TINY = [
+    "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+    "system.guidance.width=24", "system.guidance.height=24",
+    "system.prompt_processor.model_size=tiny",
+    "system.geometry.pos_encoding_config.n_levels=4",
+    "system.geometry.pos_encoding_config.log2_hashmap_size=10",
+    "system.geometry.pos_encoding_config.base_resolution=4",
+    "system.geometry.pos_encoding_config.per_level_scale=1.5",
+    "system.geometry.isosurface_resolution=24", "system.renderer.num_samples_per_ray=32",
+    "system.renderer.grid_resolution=8", "system.renderer.eval_chunk_rays=256",
+    "data.width=24", "data.height=24", "data.eval_width=24", "data.eval_height=24",
+]
+
+
+def volume_argv(work: str, device: str, size: str, run: str, steps: int) -> list:
+    """``launch_torch.py --train`` of ``configs/{run}.yaml`` with
+    ``volume_overrides``."""
+    return (["--config", f"configs/{run}.yaml", "--train", "--device", device]
+            + volume_overrides(work, size, run, steps))
+
+
+def volume_overrides(work: str, size: str, run: str, steps: int) -> list:
+    """Random weights, ``steps`` steps with the occupancy refresh every 2,
+    1 test view, the export at ``VOLUME_ISO_LEVEL``. ProlificDreamer's
+    background block is replaced (its ``random_aug`` does not parse) and
+    its renders cut from 512^2 to 128^2 (16^2 latents): the dense renderer
+    takes all 512 samples of every ray, and the hash grid's backward keeps
+    about 3.2 KB per sample, 430 GB at 512^2."""
+    tiny = size == "tiny"
+    argv = ["system.prompt_processor.prompt=a ceramic vase",
+            "system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
+            "system.renderer.grid_update_every=2",
+            f"system.geometry.isosurface_threshold={VOLUME_ISO_LEVEL}", "data.n_test_views=1",
+            f"trainer.max_steps={steps}", "trainer.val_check_interval=0",
+            "checkpoint.every_n_train_steps=0", f"exp_root_dir={work}/runs_{run}",
+            "use_timestamp=false"]
+    if run == "prolificdreamer":
+        argv.append("system.background!={color_activation: sigmoid}")
+        if not tiny:
+            argv += ["data.width=128", "data.height=128"]
+    return argv + (VOLUME_TINY if tiny else [])
+
+
+def volume_render_vs_cpu(system, dm, cfg, n_rays: int = 2048) -> dict:
+    """``n_rays`` rays of eval view 0 (evenly spaced over the image)
+    rendered by the trained scene on the card and, from a copy of it, by
+    the same system built on the CPU: max |diff| of the composited colour
+    and opacity and the relative max |diff| of the depth. Tolerance 2e-3:
+    the finite-difference normals divide fp32 density differences by 0.01,
+    and the samples run through the same occupancy grid (a copy) on both."""
+    import copy
+
+    import dreammat_tpu_torch
+
+    batch = dm.eval_rays(0)
+    ro, rd = batch["rays_o"].reshape(-1, 3), batch["rays_d"].reshape(-1, 3)
+    idx = torch.linspace(0, ro.shape[0] - 1, n_rays, device=ro.device).long()
+    ro, rd = ro[idx], rd[idx]
+    lp = batch["light_position"].reshape(1, 3).expand_as(ro)
+    cpu_sys = dreammat_tpu_torch.find(cfg.system_type)(cfg.system, device="cpu")
+    field = copy.deepcopy(system.field).cpu()
+    step = system.global_step
+    with torch.no_grad():
+        card = system.renderer.render_rays(system.field.geo, system.field.bg, system.field.occ,
+                                           ro, rd, lp, None, step=step)
+        cpu = cpu_sys.renderer.render_rays(field.geo, field.bg, field.occ, ro.cpu(), rd.cpu(),
+                                           lp.cpu(), None, step=step)
+    res = {"rays": n_rays, "hit_share": float((cpu["opacity"] > 0.5).float().mean())}
+    for key in ("comp_rgb", "opacity", "depth"):
+        diff = (card[key].cpu() - cpu[key]).abs().max().item()
+        res[key] = diff / max(cpu[key].abs().max().item(), 1e-6) if key == "depth" else diff
+    if not max(res["comp_rgb"], res["opacity"], res["depth"]) <= 2e-3:
+        raise AssertionError(f"volume render, card against the CPU: {res}")
+    return res
+
+
+def drive_volume(work: str, device: str = "cuda", size: str = "sd21", steps: int = 3) -> dict:
+    """Main path 7 through ``launch_torch.py --train`` of
+    ``configs/dreamfusion.yaml`` (SDS over a NeRF volume, 64^2 renders, as
+    written) and ``configs/prolificdreamer.yaml`` (the VSD coarse stage,
+    128^2 renders) at SD2.1 width with random weights: ``steps`` steps each
+    (the occupancy refresh at steps 0 and 2), 1 test view, the isosurface
+    export. Per run: finite losses; the test PNG, the gif and ``model.obj``
+    with vertices and faces; the occupancy grid refreshed at init and every
+    2 steps; for ProlificDreamer the LoRA state moved from its init and the
+    frozen UNet did not (per-tensor checksums). On the card also kernel A's
+    launches per step by batch and kernels C's and D's (``VOLUME_PER_STEP``).
+    Returns each run's seconds, steps, peak memory, launches and losses;
+    raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.models.volume_renderer import NeRFVolumeRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.systems.prolificdreamer import ProlificDreamer
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    kernels_a = (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+                 attn.flash_attention_bwd_dkv)
+    res = {"runs": {}}
+    for run in VOLUME_RUNS:
+        refreshes, unet_sums = [], {}
+        real_update, real_start = NeRFVolumeRenderer.update_occ, ProlificDreamer.on_fit_start
+
+        def update_occ(self, *a, **k):
+            refreshes.append(1)
+            return real_update(self, *a, **k)
+
+        def on_fit_start(self, *a, **k):
+            real_start(self, *a, **k)
+            if not unet_sums:
+                unet_sums.update({n: tensor_checksum(p)
+                                  for n, p in self.guidance.unet.named_parameters()})
+
+        NeRFVolumeRenderer.update_occ, ProlificDreamer.on_fit_start = update_occ, on_fit_start
+        for fn in kernels_a:
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            with AttentionBatches() as batches:
+                out = launch_torch.main(volume_argv(work, device, size, run, steps))
+        finally:
+            NeRFVolumeRenderer.update_occ, ProlificDreamer.on_fit_start = real_update, real_start
+        sync()
+        system, trial = out["system"], out["trial_dir"]
+        step_s = list(system.step_seconds)
+        r = {"seconds": time.time() - t0, "system": type(system).__name__,
+             "guidance": type(system.guidance).__name__,
+             "render_hw": [out["datamodule"].cfg.height, out["datamodule"].cfg.width],
+             "launches": {"flash_attn_fwd": kernels_a[0].launches,
+                          "flash_attn_bwd_dq": kernels_a[1].launches,
+                          "flash_attn_bwd_dkv": kernels_a[2].launches},
+             "flash_attn_fwd_by_batch": dict(batches.counts), "occ_refreshes": len(refreshes),
+             "step_s": step_s, "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+             "test_s": list(system.test_seconds), "losses": list(system.step_losses),
+             "step_peak_gb": list(system.step_peak_gb),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+        if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"path 7 {run}: losses {r['losses']}")
+        # the grid refreshed by init_state and at every second step
+        if r["occ_refreshes"] != 1 + len(range(0, steps, 2)):
+            raise AssertionError(f"path 7 {run}: {r['occ_refreshes']} occupancy refreshes")
+        save = os.path.join(trial, "save")
+        r["test_png"] = check_file(os.path.join(save, f"it{steps}-test", "0.png"),
+                                   b"\x89PNG\r\n\x1a\n", 100)
+        r["gif"] = check_file(os.path.join(save, f"it{steps}-test.gif"), b"GIF8", 100)
+        with open(os.path.join(save, "export", "model.obj")) as f:
+            lines = f.read().splitlines()
+        r["obj_v"] = sum(ln.startswith("v ") for ln in lines)
+        r["obj_f"] = sum(ln.startswith("f ") for ln in lines)
+        if not (r["obj_v"] > 0 and r["obj_f"] > 0):
+            raise AssertionError(f"path 7 {run}: model.obj has {r['obj_v']} v, {r['obj_f']} f")
+        if run == "prolificdreamer":
+            ref = system.guidance.init_lora(torch.Generator(device=device).manual_seed(
+                out["cfg"].seed + 0x70AA))
+            moved = {n: (p.detach() - q.detach()).abs().max().item()
+                     for (n, p), q in zip(system.lora.named_parameters(), ref.parameters())}
+            r["lora_moved"] = {"up": max(v for n, v in moved.items() if n.endswith(".up")),
+                               "down": max(v for n, v in moved.items() if n.endswith(".down")),
+                               "camera_embedding": max(v for n, v in moved.items()
+                                                       if n.startswith("camera_embedding"))}
+            r["lora_params"] = sum(p.numel() for p in system.lora.parameters())
+            r["unet_changed"] = sum(tensor_checksum(p) != unet_sums[n]
+                                    for n, p in system.guidance.unet.named_parameters())
+            if not (min(r["lora_moved"].values()) > 0 and r["unet_changed"] == 0):
+                raise AssertionError(f"path 7 {run}: LoRA moved {r['lora_moved']}, frozen UNet "
+                                     f"tensors changed {r['unet_changed']}")
+            del ref
+        if cuda:
+            r["render_vs_cpu"] = volume_render_vs_cpu(system, out["datamodule"], out["cfg"])
+        want = VOLUME_PER_STEP[run]
+        want_fwd = {b: n * steps for b, n in want["fwd_by_batch"].items()}
+        if cuda and (r["flash_attn_fwd_by_batch"] != want_fwd
+                     or r["launches"]["flash_attn_bwd_dq"] != want["dq"] * steps
+                     or r["launches"]["flash_attn_bwd_dkv"] != want["dkv"] * steps):
+            raise AssertionError(f"path 7 {run}: kernel A by batch {r['flash_attn_fwd_by_batch']}"
+                                 f" (expected {want_fwd}), C and D {r['launches']} (expected "
+                                 f"{want['dq'] * steps} and {want['dkv'] * steps})")
+        log(f"volume {run} ({r['guidance']}, {r['render_hw'][0]}^2 renders): launch_torch.py "
+            f"--train in {r['seconds']:.1f}s; kernel A by batch {r['flash_attn_fwd_by_batch']}, "
+            f"C {r['launches']['flash_attn_bwd_dq']}, D {r['launches']['flash_attn_bwd_dkv']}; "
+            f"occupancy refreshes {r['occ_refreshes']}; steps "
+            f"{', '.join(f'{x:.4f}s' for x in step_s)} (warm {r['warm_step_s']:.4f}s), peak "
+            f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])} (run {r['peak_gb'] or 0:.2f}"
+            f" GB); test view {', '.join(f'{x:.3f}s' for x in r['test_s'])}; model.obj "
+            f"{r['obj_v']} v, {r['obj_f']} f; losses {', '.join(f'{x:.6g}' for x in r['losses'])}"
+            + (f"; LoRA ({r['lora_params']} params) moved {r['lora_moved']}, frozen UNet tensors "
+               f"changed {r['unet_changed']}" if "lora_moved" in r else "")
+            + (f"; {r['render_vs_cpu']['rays']} eval rays card vs CPU: comp_rgb "
+               f"{r['render_vs_cpu']['comp_rgb']:.2e}, opacity {r['render_vs_cpu']['opacity']:.2e}"
+               f", depth (relative) {r['render_vs_cpu']['depth']:.2e} ("
+               f"{100 * r['render_vs_cpu']['hit_share']:.1f}% of rays opaque)"
+               if "render_vs_cpu" in r else ""))
+        res["runs"][run] = r
+        del out, system
+        if cuda:
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_volume() -> dict:
+    """Main path 7 on the card (``drive_volume`` at SD2.1 width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_volume")
+    res = drive_volume(work)
+    res["counts"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                     for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def volume_kernel_rows(fwd: dict, bwd: dict) -> dict:
+    """Per shape of the volume path: each kernel's max error and graph ms
+    beside SDPA's graph ms and the bound."""
+    pick = lambda r, keys: {k: r[k] for k in keys}
+    return {
+        "flash_attn_fwd": [pick(r, ("B", "N", "M", "H", "max_err", "graph_ms", "lib_graph_ms",
+                                    "bound_ms", "by", "ms", "plain_ms"))
+                           for res in fwd.values() for r in res["rows"]],
+        "flash_attn_bwd_dq": [{**pick(r, ("B", "N", "M", "H")), "max_err": r["errs"]["dq"]["max"],
+                               "graph_ms": r["dq_graph_ms"], "lib_graph_ms": r["lib_dq_graph_ms"],
+                               "bound_ms": r["dq_bound_ms"], "by": r["dq_by"]}
+                              for res in bwd.values() for r in res["rows"]],
+        "flash_attn_bwd_dkv": [{**pick(r, ("B", "N", "M", "H")),
+                                "max_err": max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"]),
+                                "graph_ms": r["dkv_graph_ms"],
+                                "lib_graph_ms": r["lib_dkv_graph_ms"],
+                                "bound_ms": r["dkv_bound_ms"], "by": r["dkv_by"]}
+                               for res in bwd.values() for r in res["rows"]],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2030,6 +2335,14 @@ def main() -> int:
     with open(TRAIN_CONFIG) as f:
         batch = yaml.safe_load(f)["train_batch_size"]
     bwd_res = phase_attention_bwd(gen, batch)
+    # the volume path's shapes: kernel A at B = 2 (SDS and both VSD CFG
+    # passes) and B = 1 (the LoRA regression), C and D at B = 1
+    attn_vol = {f"{lat}_b{B}": phase_attention(gen, B, shapes)
+                for lat, shapes in VOLUME_ATTN_SHAPES.items() for B in (2, 1)}
+    bwd_vol = {f"{lat}_b1": phase_attention_bwd(gen, 1, [(1, N, M, H) for N, M, H in shapes],
+                                                autograd_check=False)
+               for lat, shapes in VOLUME_ATTN_SHAPES.items()}
+    vol_rows = volume_kernel_rows(attn_vol, bwd_vol)
     cast_res = phase_ray_cast()
     counts = {"flash_attn_fwd": None, "ray_cast": None}
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
@@ -2037,7 +2350,8 @@ def main() -> int:
     u_counts = {"flash_attn_fwd": None, "ray_cast": None}
     o_counts = {"flash_attn_fwd": None, "ray_cast": None}
     t_counts = {"flash_attn_fwd": None, "ray_cast": None}
-    main_res = cn_res = launch_res = user_res = opt_res = tex_res = None
+    v_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
+    main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = None
     if not args.kernels_only:
         main_res = phase_main(args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -2052,6 +2366,8 @@ def main() -> int:
         o_counts = opt_res["counts"]
         tex_res = phase_texcraft()
         t_counts = tex_res["counts"]
+        vol_res = phase_volume()
+        v_counts = vol_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -2072,7 +2388,12 @@ def main() -> int:
                               "texcraft_by_run_and_batch": tex_res and {
                                   **{run: r["flash_attn_fwd_by_batch"]
                                      for run, r in tex_res["runs"].items()},
-                                  "playground": tex_res["playground"]["flash_attn_fwd_by_batch"]}},
+                                  "playground": tex_res["playground"]["flash_attn_fwd_by_batch"]},
+                              "volume": v_counts["flash_attn_fwd"],
+                              "volume_by_run_and_batch": vol_res and {
+                                  run: r["flash_attn_fwd_by_batch"]
+                                  for run, r in vol_res["runs"].items()}},
+         "volume_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
              "lib_graph_ms", "bound_ms", "by")},
@@ -2082,7 +2403,8 @@ def main() -> int:
                                                 "plain_ms", "lib_ms", "lib_graph_ms",
                                                 "bound_ms", "by")}}
                          for B, res in attn_sds.items()},
-         "max_abs_err": max(r["max_err"] for res in (attn_res, *attn_sds.values())
+         "max_abs_err": max(r["max_err"] for res in (attn_res, *attn_sds.values(),
+                                                     *attn_vol.values())
                             for r in res["rows"]),
          "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
          "bound_by": a["by"], "library_ms": a["lib_ms"], "graph_ms": a["graph_ms"],
@@ -2093,7 +2415,11 @@ def main() -> int:
          "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "dreammat_tpu/ops/attention.py:115",
          "launches": cn_counts["flash_attn_bwd_dq"],
-         "max_abs_err": max(r["errs"]["dq"]["max"] for r in bwd_res["rows"]),
+         "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dq"],
+                              "volume": v_counts["flash_attn_bwd_dq"]},
+         "volume_shapes": vol_rows["flash_attn_bwd_dq"],
+         "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
+                            for r in res["rows"]),
          "ms": c["dq_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dq_bound_ms"],
          "bound_by": c["dq_by"], "library_ms": c["lib_dq_ms"], "graph_ms": c["dq_graph_ms"],
          "host_us": c["dq_host_us"], "library_graph_ms": c["lib_dq_graph_ms"],
@@ -2103,8 +2429,11 @@ def main() -> int:
          "source": "dreammat_tpu_torch/csrc/flash_attn_bwd.cu",
          "replaces": "dreammat_tpu/ops/attention.py:146",
          "launches": cn_counts["flash_attn_bwd_dkv"],
+         "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dkv"],
+                              "volume": v_counts["flash_attn_bwd_dkv"]},
+         "volume_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
-                            for r in bwd_res["rows"]),
+                            for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
          "ms": c["dkv_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dkv_bound_ms"],
          "bound_by": c["dkv_by"], "library_ms": c["lib_dkv_ms"], "graph_ms": c["dkv_graph_ms"],
          "host_us": c["dkv_host_us"], "library_graph_ms": c["lib_dkv_graph_ms"],
@@ -2141,6 +2470,8 @@ def main() -> int:
     ]
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
+                   "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
+                   "volume": vol_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,

@@ -26,8 +26,14 @@ time uniform in degrees and half uniform on the sphere, azimuth, distance,
 fovy, the camera, centre and up perturbs, the ranges widened until
 ``progressive_until``; then the environment), casts its G-buffer (one
 launch of kernel B on the card) and bakes its probes and light table.
-The rays-only (volume) mode, without a mesh renderer, is not ported (it
-raises). ``static_field_maps`` is accepted; the port has no
+Rays-only mode, for a volume renderer (or none): no mesh and no
+prerender; every ``collate`` samples a camera with the draws above, then a
+point light (``_sample_light``: the ``dreamfusion`` strategy, the camera
+position plus a gaussian perturb, or ``magic3d``, lifted by the camera's
+distance first; normalized to a distance uniform in
+``light_distance_range``), and gives the camera's rays [H*W,3], its c2w
+[1,4,4] and the light position per ray; ``eval_rays`` gives the rays of
+an eval view with the light at the camera. ``static_field_maps`` is accepted; the port has no
 sort maps (autograd's scatter serves the field backward) but keeps their
 per-view jitter: with ``jitter_resample: "view"`` the jitter points are
 drawn once per view.
@@ -104,9 +110,7 @@ class RandomCameraDataModule(BaseObject):
     def configure(self, renderer=None, material=None, device="cuda") -> None:
         cfg = self.cfg
         self.device = resolve_device(device)
-        if renderer is None:
-            raise NotImplementedError(
-                "the rays-only (volume) mode is not ported: a mesh renderer is needed")
+        self._rays_only = renderer is None or getattr(renderer, "is_volume", False)
         self.renderer = renderer
         self.material = material
         self.cameras = cam_lib.make_fixed_cameras(
@@ -127,6 +131,8 @@ class RandomCameraDataModule(BaseObject):
 
     def setup(self) -> None:
         cfg = self.cfg
+        if self._rays_only:
+            return
         if not cfg.use_fix_views:
             self._setup_random()
             return
@@ -327,10 +333,66 @@ class RandomCameraDataModule(BaseObject):
             "width": cfg.width,
         }
 
-    def collate(self, step: int = 0) -> Dict[str, Any]:
-        """One batch: a random fixed view and a random environment, or in
-        random-camera mode a sampled camera."""
+    def _sample_light(self, cam_pos: np.ndarray) -> np.ndarray:
+        """A point light for a volume system's shading, from ``self.rng``
+        in the JAX package's order (distance, then the perturb)."""
         cfg = self.cfg
+        rng = self.rng
+        d = (rng.rand() * (cfg.light_distance_range[1] - cfg.light_distance_range[0])
+             + cfg.light_distance_range[0])
+        if cfg.light_sample_strategy == "dreamfusion":
+            v = cam_pos + rng.randn(3) * cfg.light_position_perturb
+        elif cfg.light_sample_strategy == "magic3d":
+            v = cam_pos + np.asarray([0.0, 0.0, 1.0]) * np.linalg.norm(cam_pos)
+            v = v + rng.randn(3) * cfg.light_position_perturb
+        else:
+            raise ValueError(f"unknown light_sample_strategy {cfg.light_sample_strategy}")
+        return (v / (np.linalg.norm(v) + 1e-8)) * d
+
+    def _collate_rays(self, step: int) -> Dict[str, Any]:
+        """A volume system's batch: a sampled camera's rays and a point light."""
+        cfg = self.cfg
+        cam = self._sample_camera(step)
+        light = torch.as_tensor(np.asarray(self._sample_light(cam["pos"]), np.float32),
+                                device=self.device)
+        n = cfg.height * cfg.width
+        f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
+        return {
+            "view_id": -1,
+            "env_id": 0,
+            "c2w": cam["c2w"].reshape(1, 4, 4),
+            "rays_o": cam["rays_o"].reshape(-1, 3),
+            "rays_d": cam["rays_d"].reshape(-1, 3),
+            "light_positions": light[None].expand(n, 3),
+            "height": cfg.height,
+            "width": cfg.width,
+            "elevation": f32(cam["elevation"]),
+            "azimuth": f32(cam["azimuth"]),
+            "camera_distances": f32(cam["dist"]),
+        }
+
+    def eval_rays(self, i: int) -> Dict[str, Any]:
+        """View ``i`` of the eval circle for a volume system: its rays
+        [H,W,3], the light at the camera."""
+        cfg = self.cfg
+        cd = cam_lib.camera_rays_and_matrices(self.eval_cameras, i, cfg.eval_height,
+                                              cfg.eval_width, device=self.device)
+        f32 = lambda x: torch.tensor([float(x)], dtype=torch.float32, device=self.device)
+        return {
+            "rays_o": cd["rays_o"],
+            "rays_d": cd["rays_d"],
+            "light_position": cd["camera_position"].reshape(3),
+            "elevation": f32(self.eval_cameras.elevation_deg[i]),
+            "azimuth": f32(self.eval_cameras.azimuth_deg[i]),
+        }
+
+    def collate(self, step: int = 0) -> Dict[str, Any]:
+        """One batch: a random fixed view and a random environment, in
+        random-camera mode a sampled camera, in rays-only mode a sampled
+        camera's rays and a point light."""
+        cfg = self.cfg
+        if self._rays_only:
+            return self._collate_rays(step)
         if not cfg.use_fix_views:
             return self._collate_random(step)
         assert self.data is not None, "call setup() first"

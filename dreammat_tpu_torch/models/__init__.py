@@ -1,5 +1,6 @@
 """Components of the ported path (importing registers them)."""
 
 from dreammat_tpu_torch.models import (  # noqa: F401
-    exporter, geometry, guidance, guidance_sds, guidance_triple, material, prompt, renderer,
+    background, exporter, geometry, geometry_volume, guidance, guidance_sds, guidance_triple,
+    guidance_vsd, material, material_simple, prompt, renderer, volume_renderer,
 )

@@ -1,0 +1,61 @@
+"""Backgrounds of the volume systems.
+
+Counterpart of ``neural-environment-map-background`` in
+``dreammat_tpu/models/background.py``: the ray direction's frequency
+encoding (``dir_encoding_frequencies``, the input included) through a
+small MLP (``mlp_n_hidden_layers`` x ``mlp_n_neurons``, ReLU) and the
+colour activation. Its trainable state is a ``BackgroundField`` module.
+(The DreamMat renderer composites over white and has no background
+object.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+
+import dreammat_tpu_torch
+from dreammat_tpu_torch.ops import mlp as mlp_lib
+from dreammat_tpu_torch.ops.hashgrid import frequency_encode, frequency_encoding_dims
+from dreammat_tpu_torch.utils.base import BaseObject
+from dreammat_tpu_torch.utils.hw import resolve_device
+from dreammat_tpu_torch.utils.ops import get_activation
+
+
+class BackgroundField(nn.Module):
+    def __init__(self, dims):
+        super().__init__()
+        self.mlp = mlp_lib.make_mlp(dims)
+
+
+@dreammat_tpu_torch.register("neural-environment-map-background")
+class NeuralEnvironmentMapBackground(BaseObject):
+    @dataclass
+    class Config:
+        n_output_dims: int = 3
+        color_activation: str = "sigmoid"
+        dir_encoding_frequencies: int = 4
+        mlp_n_neurons: int = 16
+        mlp_n_hidden_layers: int = 2
+
+    cfg: Config
+
+    def configure(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.in_dim = frequency_encoding_dims(3, self.cfg.dir_encoding_frequencies)
+        self.dims = ([self.in_dim] + [self.cfg.mlp_n_neurons] * self.cfg.mlp_n_hidden_layers
+                     + [self.cfg.n_output_dims])
+        self.activation = get_activation(self.cfg.color_activation)
+
+    def init(self, generator: torch.Generator) -> BackgroundField:
+        """A fresh MLP, Kaiming-uniform."""
+        f = BackgroundField(self.dims).to(self.device)
+        mlp_lib.init_mlp_(f.mlp, generator)
+        return f
+
+    def __call__(self, dirs: torch.Tensor, field_: BackgroundField) -> torch.Tensor:
+        """Directions [..., 3] -> colours [..., n_output_dims]."""
+        enc = frequency_encode(dirs, self.cfg.dir_encoding_frequencies)
+        return self.activation(mlp_lib.apply_mlp(field_.mlp, enc))

@@ -13,8 +13,11 @@ file lookup and reader for diffusers-layout weights, the loader of such a
 checkpoint into a port module (``load_diffusers_weights``, the torch ->
 flax direction's fallbacks: old VAE attention names, CLIP's bare
 ``position_embedding``, skipped ``position_ids`` buffers),
-``geometry_params_from_numpy`` for the material field, and
-``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
+``geometry_params_from_numpy`` for the material field, the implicit
+volume and the background (``volume_scene_from_numpy`` for a volume
+system's whole scene), ``lora_state_from_numpy`` and
+``lora_layers_from_numpy`` for the VSD guidance's LoRA factors and camera
+embedding, and ``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
 JAX package's ``bert_params_from_torch``).
 """
 
@@ -206,13 +209,67 @@ def load_model_dir(module: nn.Module, model_dir: Optional[str],
     return load_diffusers_weights(module, load_state_dict_file(ckpt), model_type, source=ckpt)
 
 
+_FIELD_MLPS = ("mlp", "density_mlp", "feature_mlp", "normal_mlp")
+
+
 def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX material field ``{"table": [L,T,F], "mlp": {"w": [[in,out]...],
-    "b": [[out]...]}}`` (numpy) -> a state dict of the port's ``MaterialField``."""
-    sd = {"table": torch.from_numpy(np.array(params["table"], dtype=np.float32))}
-    for i, (w, b) in enumerate(zip(params["mlp"]["w"], params["mlp"]["b"])):
-        sd[f"mlp.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).T))
-        sd[f"mlp.{i}.bias"] = torch.from_numpy(np.array(b, dtype=np.float32))
+    """A JAX field tree (numpy) -> the state dict of the port's module: the
+    material field ``{"table": [L,T,F], "mlp": {"w": [[in,out]...], "b":
+    [[out]...]}}`` (``MaterialField``), the implicit volume ``{"table",
+    "density_mlp", "feature_mlp", "normal_mlp"}`` (``VolumeField``, MLPs as
+    present) or the neural environment map ``{"mlp"}`` (``BackgroundField``)."""
+    sd = {}
+    if "table" in params:
+        sd["table"] = torch.from_numpy(np.array(params["table"], dtype=np.float32))
+    for name in _FIELD_MLPS:
+        if name not in params:
+            continue
+        for i, (w, b) in enumerate(zip(params[name]["w"], params[name]["b"])):
+            sd[f"{name}.{i}.weight"] = torch.from_numpy(np.array(np.asarray(w, np.float32).T,
+                                                                 order="C"))
+            sd[f"{name}.{i}.bias"] = torch.from_numpy(np.array(b, dtype=np.float32))
+    return sd
+
+
+def volume_scene_from_numpy(geo: Mapping, bg: Mapping, occ) -> Dict[str, torch.Tensor]:
+    """The JAX volume systems' ``state["geo"]``, ``state["bg"]`` and
+    ``state["render"]["occ"]`` (numpy) -> a ``VolumeScene`` state dict."""
+    sd = {"geo." + k: v for k, v in geometry_params_from_numpy(geo).items()}
+    sd.update({"bg." + k: v for k, v in geometry_params_from_numpy(bg).items()})
+    sd["occ"] = torch.from_numpy(np.array(occ, dtype=np.float32))
+    return sd
+
+
+def lora_site_name(jax_key: str) -> str:
+    """A JAX LoRA site key (``params/down_blocks_0/.../attn1/to_out_0``) ->
+    the port's site, the module name of its Linear (``down_blocks.0...
+    attn1.to_out.0``)."""
+    path = tuple(p for p in jax_key.split("/") if p != "params") + ("kernel",)
+    return flax_path_to_torch_key(path, "unet")[:-len(".weight")]
+
+
+def lora_layers_from_numpy(layers: Mapping, sites) -> Dict[str, torch.Tensor]:
+    """The JAX LoRA factors ``{key: {"down" [in,r], "up" [r,out]}}`` (numpy)
+    -> a state dict of the port's ``LoRALayers``, whose layers follow
+    ``sites`` (``LoRALayers.sites``)."""
+    by_site = {lora_site_name(k): v for k, v in layers.items()}
+    if sorted(by_site) != sorted(sites):
+        raise KeyError(f"LoRA sites differ: {sorted(set(by_site) ^ set(sites))[:4]}")
+    t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+    sd = {}
+    for i, site in enumerate(sites):
+        sd[f"layers.{i}.down"] = t(by_site[site]["down"])
+        sd[f"layers.{i}.up"] = t(by_site[site]["up"])
+    return sd
+
+
+def lora_state_from_numpy(lora: Mapping, sites) -> Dict[str, torch.Tensor]:
+    """The JAX VSD guidance's LoRA tree ``{"layers": {...},
+    "camera_embedding": {"linear_1", "linear_2"}}`` (numpy) -> a state dict
+    of the port's ``LoRAState``."""
+    sd = {"layers." + k: v for k, v in lora_layers_from_numpy(lora["layers"], sites).items()}
+    for k, v in flax_to_torch_state_dict(lora["camera_embedding"], "unet").items():
+        sd["camera_embedding." + k] = v
     return sd
 
 

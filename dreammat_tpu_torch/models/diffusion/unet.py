@@ -3,6 +3,10 @@
 Counterpart of ``dreammat_tpu/models/diffusion/unet.py``, with the same
 config (``UNetConfig.sd21()`` / ``.tiny()``) and the ControlNet injection
 points ``down_block_additional_residuals`` / ``mid_block_additional_residual``.
+``class_embed_dim`` adds diffusers' ``class_embedding`` slot, a
+``TimestepEmbedding(class_embed_dim -> 4 ch0)`` of ``class_labels`` added to
+the time embedding (the VSD guidance feeds it the flattened camera); without
+it the module's keys are those of a plain SD2.1 UNet.
 """
 
 from __future__ import annotations
@@ -135,12 +139,14 @@ def down_path_channels(cfg: UNetConfig) -> List[int]:
 class UNet2DCondition(nn.Module):
     """sample [B,C,h,w], timesteps [B], context [B,N,cross] -> eps (fp32)."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, class_embed_dim: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         temb_ch = ch0 * 4
         self.time_embedding = L.TimestepEmbedding(ch0, temb_ch)
+        if class_embed_dim is not None:
+            self.class_embedding = L.TimestepEmbedding(class_embed_dim, temb_ch)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         nb = len(cfg.block_out_channels)
         downs, prev = [], ch0
@@ -173,9 +179,12 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, context,
                 down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
-                mid_block_additional_residual: Optional[torch.Tensor] = None):
+                mid_block_additional_residual: Optional[torch.Tensor] = None,
+                class_labels: Optional[torch.Tensor] = None):
         dtype = self.conv_in.weight.dtype
         temb = self.time_embed(timesteps)
+        if class_labels is not None:
+            temb = temb + self.class_embedding(class_labels.to(dtype))
         context = context.to(dtype)
         x = self.conv_in(sample.to(dtype))
         skips = [x]

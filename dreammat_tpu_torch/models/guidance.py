@@ -82,6 +82,8 @@ class StableDiffusionLightGuidance(BaseObject):
         enable_channels_last_format: bool = False
 
     cfg: Config
+    # the UNet's class-embedding slot (the VSD guidance's camera): none here
+    unet_class_embed_dim: Optional[int] = None
 
     def configure(self, device="cuda") -> None:
         cfg = self.cfg
@@ -118,7 +120,8 @@ class StableDiffusionLightGuidance(BaseObject):
             m = build_on(fn, self.device, self.dtype)
             return random_init_(m, generator).eval().requires_grad_(False)
 
-        self.unet = make(lambda: UNet2DCondition(self.unet_cfg))
+        self.unet = make(lambda: UNet2DCondition(self.unet_cfg,
+                                                 class_embed_dim=self.unet_class_embed_dim))
         self.vae = make(lambda: AutoencoderKL(self.vae_cfg))
         self.controlnets = [make(lambda c=c: ControlNet(c)) for c in self.controlnet_cfgs]
         self.loaded = {}

@@ -94,3 +94,17 @@ def hashgrid_encode(table: torch.Tensor, points: torch.Tensor, cfg: HashGridConf
         feats = tl.index_select(0, rows).reshape(x.shape[0], C, -1)
         outs.append(torch.sum(feats * wc[..., None], dim=1))
     return torch.cat(outs, dim=-1).reshape(*lead, cfg.n_output_dims)
+
+
+def frequency_encode(x: torch.Tensor, n_frequencies: int, include_input: bool = True) -> torch.Tensor:
+    """NeRF positional encoding: [x,] sin(2^k x), cos(2^k x) for k < n,
+    concatenated on the last axis in the JAX package's order."""
+    outs = [x] if include_input else []
+    for f in 2.0 ** np.arange(n_frequencies, dtype=np.float32):
+        outs.append(torch.sin(x * float(f)))
+        outs.append(torch.cos(x * float(f)))
+    return torch.cat(outs, dim=-1)
+
+
+def frequency_encoding_dims(n_input: int, n_frequencies: int, include_input: bool = True) -> int:
+    return n_input * (2 * n_frequencies + (1 if include_input else 0))

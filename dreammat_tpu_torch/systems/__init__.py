@@ -1,3 +1,5 @@
 """Training systems (importing registers them)."""
 
-from dreammat_tpu_torch.systems import controlnet_trainer, dreammat, texcraft  # noqa: F401
+from dreammat_tpu_torch.systems import (  # noqa: F401
+    controlnet_trainer, dreamfusion, dreammat, prolificdreamer, texcraft,
+)

@@ -82,8 +82,7 @@ class DreamMat(BaseObject):
         find = dreammat_tpu_torch.find
         self.geometry = find(self.cfg.geometry_type)(self.cfg.geometry, device=self.device)
         self.material = find(self.cfg.material_type)(self.cfg.material, device=self.device)
-        self.renderer = find(self.cfg.renderer_type)(
-            self.cfg.renderer, self.geometry, self.material, device=self.device)
+        self.renderer = self._make_renderer()
         self.guidance = None
         self.prompt_processor = None
         self.prompt_utils = None
@@ -96,6 +95,10 @@ class DreamMat(BaseObject):
         self.step_peak_gb: List[float] = []  # peak device memory per step (CUDA)
         self.test_seconds: List[float] = []  # per eval view of the last test()
         self.exporter = None
+
+    def _make_renderer(self):
+        return dreammat_tpu_torch.find(self.cfg.renderer_type)(
+            self.cfg.renderer, self.geometry, self.material, device=self.device)
 
     def on_fit_start(self, seed: int = 0) -> None:
         """Build the guidance (weights from its cache_dir where present, random
@@ -125,6 +128,13 @@ class DreamMat(BaseObject):
         if optimizer_state is not None:
             self.optimizer.load_state_dict(optimizer_state)
         self.global_step = int(step)
+
+    def on_train_batch_start(self, it: int, draws) -> None:
+        """A hook before step ``it``'s train step (the volume systems'
+        occupancy refresh); nothing here."""
+
+    def step_kind(self, batch: Dict[str, Any]) -> str:
+        return "tables" if batch.get("light_table") is not None else "mc"
 
     def train_step(self, batch: Dict[str, Any], draws) -> Dict[str, torch.Tensor]:
         """One optimization step on ``batch``; every random draw comes from
@@ -190,19 +200,21 @@ class DreamMat(BaseObject):
             if cuda:
                 torch.cuda.reset_peak_memory_stats(self.device)
             t0 = time.time()
+            self.on_train_batch_start(it, draws)
             metrics = self.train_step(batch, draws)
             sync()
             self.step_seconds.append(time.time() - t0)
             self.step_losses.append(float(metrics["loss"]))
-            self.step_kinds.append("tables" if batch.get("light_table") is not None else "mc")
+            self.step_kinds.append(self.step_kind(batch))
             if cuda:
                 self.step_peak_gb.append(torch.cuda.max_memory_allocated(self.device) / 1e9)
             if (it + 1) % log_every == 0 or it + 1 == max_steps:
                 m = {k: float(v) for k, v in metrics.items()}
-                dreammat_tpu_torch.info(
-                    "step %d loss=%.4f sds=%.4f reg=%.5f (%s, %.3f s/step)", it + 1,
-                    m["loss"], m["loss_sds"], m["loss_mat_reg"], self.step_kinds[-1],
-                    self.step_seconds[-1])
+                terms = " ".join(f"{k[5:]}={v:.5g}" for k, v in m.items()
+                                 if k.startswith("loss_"))
+                dreammat_tpu_torch.info("step %d loss=%.4f %s (%s, %.3f s/step)", it + 1,
+                                        m["loss"], terms, self.step_kinds[-1],
+                                        self.step_seconds[-1])
                 metric_logger.log({**m, "seconds": self.step_seconds[-1]}, it + 1)
                 progress.update(it + 1, max_steps)
             if self.cfg.save_train_image and grid_every and (it + 1) % grid_every == 0:

@@ -51,6 +51,7 @@ def get_activation(name):
         "tanh": torch.tanh,
         "softplus": F.softplus,
         "relu": F.relu,
+        "scale_-11_01": lambda x: x * 0.5 + 0.5,
     }
     if name in table:
         return table[name]

@@ -6,7 +6,10 @@ The flag surface of ``launch.py``:
         system.geometry.shape_init=mesh:<mesh>.obj system.prompt_processor.prompt="..."
 
 ``--train`` runs the datamodule's setup (prerender, fast-path gate), ``fit``,
-the test renders of the eval circle and the OBJ/MTL export;
+the test renders of the eval circle and the OBJ/MTL export; the volume
+systems (``configs/dreamfusion.yaml``, ``configs/prolificdreamer.yaml``)
+have no prerender, render their test views by volume rendering and export
+the density isosurface as an OBJ with vertex colours;
 ``--validate`` / ``--test`` / ``--export`` run one of them from a
 checkpoint given by ``--resume``. A UV-space field
 (``system.geometry.n_input_dims=2``) cannot be exported (the reference

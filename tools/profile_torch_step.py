@@ -4,6 +4,7 @@
     python3 tools/profile_torch_step.py --mc-torus [--views 2] [--warmup 2] [--steps 3]
     python3 tools/profile_torch_step.py --controlnet [--warmup 2] [--steps 3]
     python3 tools/profile_torch_step.py --gate
+    python3 tools/profile_torch_step.py --volume dreamfusion|prolificdreamer
 
 Sets up one of the paths of ``chip_smoke.py``: DreamMat material
 generation (its ``main_config``: ``configs/dreammat.yaml``, tables regime,
@@ -13,7 +14,10 @@ the same config on main path 3's torus (36,864 triangles) with
 estimator; or with ``--controlnet`` ControlNet training (``ControlNetTrainer`` at the defaults
 of ``configs/controlnet_train.yaml``: SD2.1 width, resolution 256, random
 weights, one batch of ``train_batch_size`` (32) random images and
-conditions made with numpy from seed 0). Runs ``--warmup`` train steps, then traces ``--steps``
+conditions made with numpy from seed 0); or with ``--volume`` one run of
+main path 7 (``configs/dreamfusion.yaml`` at 64^2, or
+``configs/prolificdreamer.yaml`` at 128^2, with ``chip_smoke.py``'s
+overrides). Runs ``--warmup`` train steps, then traces ``--steps``
 more with ``torch.profiler`` (CPU and CUDA activities), then times ``--steps``
 more without it. Prints the device time by kernel class and the top kernels,
 the device's busy share of the traced window and of the unprofiled step
@@ -169,6 +173,27 @@ def profile_gate(args):
         print(f"  {k.self_cpu_time_total / 1e3:10.1f} {k.count:7d}  {k.key[:100]}")
 
 
+def setup_volume(args):
+    """Main path 7's system and datamodule for ``args.volume``."""
+    import dreammat_tpu_torch
+    from chip_smoke import volume_overrides
+    from dreammat_tpu_torch.utils.config import load_config
+
+    trial = os.path.join(args.out, "volume")
+    cfg = load_config(f"configs/{args.volume}.yaml",
+                      volume_overrides(trial, "sd21", args.volume, 0))
+    find = dreammat_tpu_torch.find
+    system = find(cfg.system_type)(cfg.system)
+    dm = find(cfg.data_type)(cfg.data, system.renderer, system.material)
+    dm.setup()
+
+    def run(n):
+        system.fit(dm, max_steps=system.global_step + n, seed=0, trial_dir=trial, log_every=n,
+                   val_check_interval=0, checkpoint_every=0)
+
+    return run, system.step_seconds
+
+
 def setup_controlnet(args):
     import dreammat_tpu_torch
 
@@ -204,6 +229,8 @@ def main() -> int:
                     help="profile a ControlNet training step instead of a DreamMat one")
     ap.add_argument("--gate", action="store_true",
                     help="run main path 3 alone, the gate's first grad-cos traced")
+    ap.add_argument("--volume", choices=("dreamfusion", "prolificdreamer"),
+                    help="profile a step of main path 7's run of this config")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -219,7 +246,8 @@ def main() -> int:
         profile_gate(args)
         print(card)
         return 0
-    run, step_seconds = (setup_controlnet if args.controlnet else setup_dreammat)(args)
+    run, step_seconds = (setup_controlnet if args.controlnet else
+                         setup_volume if args.volume else setup_dreammat)(args)
     run(args.warmup)
     torch.cuda.synchronize()
 
