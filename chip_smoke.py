@@ -163,7 +163,43 @@ which fails the run on any error:
    seconds, warm step, peak memory and test-view seconds are printed. The
    same runs go on the CPU at tiny size with ``drive_volume(work,
    device="cpu", size="tiny")``.
-13. A ``{"kernels": [...]}`` line, the card's line, and last
+13. Main path 8: the DMTet family (``drive_dmtet``), five
+   ``launch_torch.main(["--config", ..., "--train", ...])`` runs under
+   ``outputs/chip_smoke_dmtet/`` at SD2.1 width, random weights, 512^2
+   renders, DMTet ``isosurface_resolution`` 128 (2,146,689 lattice vertices,
+   12,582,912 tets) with the default budget of 2^17 crossing tets (262,144
+   triangle slots), 1 test view (``DMTET_RUNS``): Fantasia3D's geometry
+   stage (``configs/fantasia3d.yaml`` as written, 3 steps with
+   ``latent_steps=2``: the latent branch twice, then the VAE branch; its
+   ``model.obj``), its texture stage (``pbr-material`` with 8 feature
+   channels on the procedural sky, 2 steps), Magic3D's refinement
+   (``configs/dreamfusion.yaml`` with ``magic3d-system``, ``refinement`` and
+   the geometry, renderer, material and background blocks replaced, 2
+   steps) and ProlificDreamer's geometry and texture stages
+   (``configs/prolificdreamer.yaml`` under VSD with the geometry, renderer
+   and background blocks replaced, 2 steps each). Per run: finite losses,
+   the SDF moved (geometry stages) or unchanged by checksum with the
+   feature MLP moved (texture stages), the test PNG; kernel B exactly one
+   launch per training step (the rasterizer's hit pass) and one per eval
+   chunk; kernel A by batch and C and D as ``VOLUME_PER_STEP`` says for the
+   guidance; the kernel phase checks A, C and D at B = 1 at every
+   attention shape of 64^2 latents (``ATTN_SHAPES``; the VSD runs' LoRA
+   regression), A at B = 2 there being the SDS check's. Then kernel B bit
+   for bit against ``cast_rays_plain`` on
+   65,536 of the last step's rays against its whole soup (16,384 after
+   the first run) and on 4096 rays through the origin (none may report an
+   invalid slot), with its time, pairs tested and bound; the step's parts
+   (marching tets, vertex normals, the hit pass, the SDF opacity and the
+   whole render, forward and backward; the first run's render also by
+   kernel through ``torch.profiler``); the mesh part of a step (the
+   isosurface, the hit pass, the render, the mesh losses and the backward)
+   under ``torch.cuda.set_sync_debug_mode("warn")``, where no operation may
+   synchronize with the host; for Fantasia3D's geometry stage
+   2048 rays of eval view 0 on the card and on the CPU (at most 1e-3 of
+   the hits differ, 2e-3 where they agree). Each run's seconds, warm step and peak memory are printed. The
+   same runs go on the CPU at tiny size with ``drive_dmtet(work,
+   device="cpu", size="tiny")``.
+14. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -871,10 +907,10 @@ class StageLaunches:
             setattr(owner, name, fn)
 
 
-def _cast_case(label, bvh, tri, o, d, clock, check_idx=None):
+def _cast_case(label, bvh, tri, o, d, clock, check_idx=None, chunk: int = 2048):
     """Kernel B on the rays (o, d): its time, the pairs it tested, its
-    bound, and the plain caster on ``check_idx`` (all rays if None), which
-    must agree bit for bit."""
+    bound, and the plain caster (``chunk`` rays at a time) on ``check_idx``
+    (all rays if None), which must agree bit for bit."""
     from dreammat_tpu_torch.ops import bvh as bvh_lib
 
     R, T = o.shape[0], tri[0].shape[1]
@@ -884,7 +920,7 @@ def _cast_case(label, bvh, tri, o, d, clock, check_idx=None):
     sel = torch.arange(R, device="cuda") if check_idx is None else check_idx
     os_, ds = o[sel].contiguous(), d[sel].contiguous()
     t0 = time.time()
-    ref = bvh_lib.cast_rays_plain(bvh, os_, ds, chunk=2048, tri_data=tri)
+    ref = bvh_lib.cast_rays_plain(bvh, os_, ds, chunk=chunk, tri_data=tri)
     torch.cuda.synchronize()
     plain_ms = (time.time() - t0) * 1e3
     sub = {k: v[sel] for k, v in got.items()}
@@ -2281,8 +2317,8 @@ def phase_volume() -> dict:
 
 
 def volume_kernel_rows(fwd: dict, bwd: dict) -> dict:
-    """Per shape of the volume path: each kernel's max error and graph ms
-    beside SDPA's graph ms and the bound."""
+    """Per shape of the volume path (and of the DMTet path at B = 1): each
+    kernel's max error and graph ms beside SDPA's graph ms and the bound."""
     pick = lambda r, keys: {k: r[k] for k in keys}
     return {
         "flash_attn_fwd": [pick(r, ("B", "N", "M", "H", "max_err", "graph_ms", "lib_graph_ms",
@@ -2299,6 +2335,465 @@ def volume_kernel_rows(fwd: dict, bwd: dict) -> dict:
                                 "bound_ms": r["dkv_bound_ms"], "by": r["dkv_by"]}
                                for res in bwd.values() for r in res["rows"]],
     }
+
+
+# Main path 8, the DMTet family: each run is (config, steps, texture stage,
+# overrides). Fantasia3D's geometry stage takes its latent branch at steps 0
+# and 1 (latent_steps=2) and the VAE branch at step 2.
+DMTET_BLOCKS = {
+    "geometry": ("system.geometry!={radius: 1.0, isosurface_resolution: 128, "
+                 "shape_init: sphere, shape_init_params: 0.5, n_feature_dims: 3}"),
+    "renderer": "system.renderer!={radius: 1.0}",
+}
+DMTET_RUNS = {
+    "fantasia3d_geometry": ("configs/fantasia3d.yaml", 3, False, ["system.latent_steps=2"]),
+    "fantasia3d_texture": ("configs/fantasia3d.yaml", 2, True, [
+        "system.texture=true", "system.material_type=pbr-material",
+        "system.material!={environment_texture: /nonexistent.hdr}",
+        "system.geometry.n_feature_dims=8"]),
+    "magic3d_refinement": ("configs/dreamfusion.yaml", 2, False, [
+        "system_type=magic3d-system", "system.refinement=true",
+        "system.geometry_type=tetrahedra-sdf-grid", DMTET_BLOCKS["geometry"],
+        "system.renderer_type=nvdiff-rasterizer", DMTET_BLOCKS["renderer"],
+        "system.material_type=no-material", "system.material!={n_output_dims: 3}",
+        "system.background_type=solid-color-background", "system.background!={}",
+        "system.loss!={lambda_sds: 1.0, lambda_normal_consistency: 1000.0}",
+        "data.width=512", "data.height=512"]),
+    "prolificdreamer_geometry": ("configs/prolificdreamer.yaml", 2, False, [
+        "system.stage=geometry", DMTET_BLOCKS["geometry"], DMTET_BLOCKS["renderer"],
+        "system.background!={color_activation: sigmoid}"]),
+    "prolificdreamer_texture": ("configs/prolificdreamer.yaml", 2, True, [
+        "system.stage=texture", DMTET_BLOCKS["geometry"], DMTET_BLOCKS["renderer"],
+        "system.geometry.fix_geometry=true",
+        "system.background!={color_activation: sigmoid}"]),
+}
+# the configs cut to the CPU tiny form
+DMTET_TINY = [
+    "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+    "system.guidance.width=24", "system.guidance.height=24",
+    "system.prompt_processor.model_size=tiny", "system.geometry.isosurface_resolution=12",
+    "system.geometry.max_crossing_tets=2048",
+    "system.geometry.pos_encoding_config.n_levels=4",
+    "system.geometry.pos_encoding_config.n_features_per_level=2",
+    "system.geometry.pos_encoding_config.log2_hashmap_size=10",
+    "system.geometry.pos_encoding_config.base_resolution=4",
+    "system.geometry.pos_encoding_config.per_level_scale=1.5",
+    "system.renderer.sdf_opacity_samples=8", "system.renderer.eval_chunk_rays=256",
+    "data.width=24", "data.height=24", "data.eval_width=24", "data.eval_height=24",
+]
+
+
+def dmtet_argv(work: str, device: str, size: str, run: str) -> list:
+    """``launch_torch.py --train`` of run ``run`` of ``DMTET_RUNS``: random
+    weights, 1 test view, no validation or checkpoint."""
+    config, steps, _, over = DMTET_RUNS[run]
+    return (["--config", config, "--train", "--device", device,
+             "system.prompt_processor.prompt=a ceramic vase",
+             "system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
+             "data.n_test_views=1", f"trainer.max_steps={steps}", "trainer.val_check_interval=0",
+             "checkpoint.every_n_train_steps=0", f"exp_root_dir={work}/runs_{run}",
+             "use_timestamp=false"] + over + (DMTET_TINY if size == "tiny" else []))
+
+
+def morton_order(tri: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """Slot order of a soup [F,3,3] by the 30-bit Morton code of each
+    triangle's centroid in the box [lo, hi], invalid slots last."""
+    q = torch.clamp((tri.mean(1) - lo) / (hi - lo), 0.0, 1.0) * 1023.0
+    code = torch.zeros(tri.shape[0], dtype=torch.int64, device=tri.device)
+    for axis in range(3):
+        x = q[:, axis].long()
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        code = code | (x << (2 - axis))
+    return torch.argsort(torch.where(valid, code, 1 << 31), stable=True)
+
+
+def dmtet_cast_check(system, last, clock: Optional[float], n_check: int = 65536) -> dict:
+    """Kernel B on the last training step's hit pass (its rays against its
+    whole soup): the kernel's time, the pairs it tested, the pairs it tests
+    on the soup in Morton order, the bound over the fewer of the two, and
+    bit for bit against ``cast_rays_plain`` on ``n_check`` of its rays
+    (evenly spaced); then 4096 rays through the origin, where every invalid
+    slot (an all-zero triangle, id -1) lies, all checked, none of which may
+    report an invalid slot. On the CPU both sides are the plain caster."""
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    ro, rd, tri, valid = last
+    soup = system.renderer.soup_bvh(tri, valid)
+    tri_data = bvh_lib._plane_tri_data(soup)
+    idx = torch.linspace(0, ro.shape[0] - 1, min(n_check, ro.shape[0]),
+                         device=ro.device).long()
+    gen = torch.Generator(device=ro.device).manual_seed(0)
+    d0 = torch.randn(4096, 3, generator=gen, device=ro.device)
+    d0 = (d0 / d0.norm(dim=-1, keepdim=True)).contiguous()
+    o0 = (-2.0 * d0).contiguous()
+    rows = {}
+    for name, o, d, sel in (("steps", ro, rd, idx), ("origin", o0, d0, None)):
+        if ro.device.type == "cuda":
+            rows[name] = _cast_case(f"DMTet hit pass ({name}) {o.shape[0]} rays", soup, tri_data,
+                                    o, d, clock, check_idx=sel, chunk=256)
+        else:
+            sel = torch.arange(o.shape[0]) if sel is None else sel
+            got = bvh_lib.cast_rays_dense(soup, o, d, tri_data=tri_data)
+            ref = bvh_lib.cast_rays_plain(soup, o[sel], d[sel], tri_data=tri_data)
+            rows[name] = {"R": o.shape[0], "T": tri.shape[0], "checked": int(sel.shape[0]),
+                          **cast_disagreement({k: v[sel] for k, v in got.items()}, ref)}
+            if any(rows[name][k] for k in ("flips", "t_err", "face_diff", "uv_diff")):
+                raise AssertionError(f"DMTet hit pass against the plain caster: {rows[name]}")
+    hits = bvh_lib.cast_rays_dense(soup, o0, d0, tri_data=tri_data)
+    if not bool(valid[hits["face"][hits["hit"]].long()].all()):
+        raise AssertionError("DMTet hit pass: a ray through the origin hit an invalid slot")
+    row = dict(rows["steps"])
+    row.update(rays=int(idx.shape[0]), valid_slots=int(valid.sum()),
+               origin_rays=rows["origin"]["checked"],
+               origin_hit_share=float(hits["hit"].float().mean()))
+    if ro.device.type == "cuda":
+        # the bound counts the fewer of the pairs the cull tests on the soup
+        # as it is (slots in lattice order) and on the soup sorted by the
+        # Morton code of its triangles' centroids: a spatial order, which
+        # shows whether the lattice order flatters or hinders the cull
+        ren = system.renderer
+        order = morton_order(tri, valid, ren.bbox_lo, ren.bbox_hi)
+        pairs_m = torch.zeros(1, dtype=torch.int64, device=ro.device)
+        bvh_lib.cast_rays_dense(ren.soup_bvh(tri[order].contiguous(), valid[order]), ro, rd,
+                                pairs_out=pairs_m)
+        pm = float(pairs_m.item())
+        b = cast_bounds(pm, ro.shape[0], tri.shape[0], clock)
+        tested = {"bound_ms": row["bound_ms"], "by": row["by"]}
+        least = min(tested, b, key=lambda x: x["bound_ms"])
+        row.update(pairs_morton=pm, bound_tested_ms=tested["bound_ms"],
+                   bound_morton_ms=b["bound_ms"], bound_ms=least["bound_ms"], by=least["by"])
+        log(f"DMTet hit pass: pairs tested on the soup in Morton order {pm:.4g} "
+            f"({100.0 * pm / (float(ro.shape[0]) * tri.shape[0]):.3f}% of R x T; in lattice "
+            f"order {row['pairs']:.4g}), bound {row['bound_ms']:.4f} ms ({row['by']}); the "
+            f"kernel {row['ms']:.3f} ms is {row['ms'] / row['bound_ms']:.1f}x that bound and "
+            f"{row['ms'] / row['bound_all_pairs_ms']:.3f}x the all-pairs bound "
+            f"{row['bound_all_pairs_ms']:.3f} ms")
+    return row
+
+
+def dmtet_breakdown(system, last, render_rgb: bool, profile: bool = False) -> dict:
+    """Milliseconds (CUDA events, 3 calls) of the parts of a DMTet training
+    render on the last step's rays and the trained scene: marching tets, the
+    vertex normals, the hit pass, the SDF opacity (forward and backward; the
+    forward alone under ``fix_geometry``), and the whole render forward and
+    backward (``render_rgb`` as the stage renders); with ``profile`` also the
+    device time of one render forward and backward and its 12 largest
+    kernels (``torch.profiler``)."""
+    from dreammat_tpu_torch.ops import dmtet
+
+    ro, rd, tri, valid = last
+    f, geo, ren = system.field, system.geometry, system.renderer
+    mesh = geo.isosurface(f.geo)
+    w = torch.rand(ro.shape[0], 1, device=ro.device)
+    fixed = geo.cfg.fix_geometry
+
+    def opacity():
+        op = ren._sdf_opacity(f.geo, ro, rd)
+        if not fixed:
+            (op * w).sum().backward()
+
+    def render_fb():
+        out = ren.render_rays(f.geo, f.bg, f.occ, ro, rd, torch.zeros_like(ro), None,
+                              is_train=True, render_rgb=render_rgb)
+        (out["comp_rgb"] * w).sum().backward()
+
+    if profile:
+        # device time by kernel over one render forward and backward
+        render_fb()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render_fb()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -getattr(e, "device_time_total", 0))
+        top = [{"name": e.key[:80], "ms": e.device_time_total / 1e3, "calls": e.count}
+               for e in rows[:12]]
+        total = sum(getattr(e, "device_time_total", 0) for e in rows) / 1e3
+    res = {
+        "marching_tets_ms": cuda_ms(lambda: geo.isosurface(f.geo), 3),
+        "vertex_normals_ms": cuda_ms(lambda: dmtet.vertex_normals_by_gid(
+            mesh.tri_verts, mesh.valid, mesh.edge_gid), 3),
+        "hit_pass_ms": cuda_ms(lambda: ren._cast(ro, rd, tri, valid), 3),
+        ("sdf_opacity_fwd_ms" if fixed else "sdf_opacity_fwd_bwd_ms"): cuda_ms(opacity, 3),
+        "render_fwd_bwd_ms": cuda_ms(render_fb, 3),
+    }
+    if profile:
+        res["profile_device_ms"], res["profile_top"] = total, top
+    for p in f.parameters():
+        p.grad = None
+    return res
+
+
+def dmtet_sync_check(system, last, render_rgb: bool) -> dict:
+    """The mesh part of a training step (the isosurface, the hit pass, the
+    render as the stage renders, the mesh losses and their backward) on the
+    last step's rays under ``torch.cuda.set_sync_debug_mode("warn")``: no
+    operation may synchronize with the host. A ``.item()`` first shows that
+    the mode sees a sync."""
+    import warnings
+
+    from dreammat_tpu_torch.ops import dmtet
+
+    ro, rd, _, _ = last
+    f, ren = system.field, system.renderer
+    w = torch.rand(ro.shape[0], 1, device=ro.device)
+    syncs = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            w.sum().item()
+            control = len(seen)
+            out = ren.render_rays(f.geo, f.bg, f.occ, ro, rd, torch.zeros_like(ro), None,
+                                  step=system.global_step, is_train=True, render_rgb=render_rgb)
+            loss = (out["comp_rgb"] * w).sum()
+            if not system.geometry.cfg.fix_geometry:
+                loss = loss + dmtet.normal_consistency(*out["mesh"], vn=out["vertex_normals"]) \
+                    + dmtet.laplacian_smoothness(*out["mesh"])
+            loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [f"{os.path.basename(x.filename)}:{x.lineno}: {str(x.message)[:80]}"
+                 for x in seen[control:] if "synchroniz" in str(x.message)]
+    for p in f.parameters():
+        p.grad = None
+    if control < 1 or syncs:
+        raise AssertionError(f"DMTet step's mesh part: the control sync seen {control} times; "
+                             f"syncs in the step: {syncs}")
+    return {"control_syncs_seen": control, "syncs": len(syncs)}
+
+
+def dmtet_render_vs_cpu(system, dm, cfg, n_rays: int = 2048) -> dict:
+    """``n_rays`` rays of eval view 0 (evenly spaced) rendered by the trained
+    scene on the card and, from a copy of it, by the same system built on
+    the CPU: the share of rays whose hit differs (kernel B against the plain
+    caster on soups extracted on either side; at most 1e-3) and the max
+    |diff| of the colour, opacity and depth where the hits agree (2e-3).
+    The CPU side's soup is cut after its last valid slot."""
+    import copy
+
+    import dreammat_tpu_torch
+
+    batch = dm.eval_rays(0)
+    ro, rd = batch["rays_o"].reshape(-1, 3), batch["rays_d"].reshape(-1, 3)
+    idx = torch.linspace(0, ro.shape[0] - 1, n_rays, device=ro.device).long()
+    ro, rd = ro[idx].contiguous(), rd[idx].contiguous()
+    lp = batch["light_position"].reshape(1, 3).expand_as(ro)
+    seconds = {}
+    t0 = time.time()
+    cpu_sys = dreammat_tpu_torch.find(cfg.system_type)(cfg.system, device="cpu")
+    field = copy.deepcopy(system.field).cpu()
+    seconds["cpu_build"] = time.time() - t0
+    step = system.global_step
+    with torch.no_grad():
+        card = system.renderer.render_rays(system.field.geo, system.field.bg, None, ro, rd, lp,
+                                           None, step=step)
+        t0 = time.time()
+        mesh = cpu_sys.geometry.isosurface(field.geo)
+        # the soup cut after its last valid slot: the slots past it are
+        # invalid (never hit, no part in the vertex normals), so the render
+        # is the same, and the plain caster on the CPU has a third less work
+        n_live = int(torch.nonzero(mesh.valid).max()) + 1
+        mesh = type(mesh)(*(x[:n_live] for x in mesh))
+        seconds["cpu_isosurface"] = time.time() - t0
+        t0 = time.time()
+        cpu = cpu_sys.renderer.render_rays(field.geo, field.bg, None, ro.cpu(), rd.cpu(),
+                                           lp.cpu(), None, step=step, mesh=mesh)
+        seconds["cpu_render"] = time.time() - t0
+    same = card["hit"].cpu() == cpu["hit"]
+    res = {"rays": n_rays, "hit_share": float(cpu["hit"].float().mean()),
+           "hit_flips": int((~same).sum()), "seconds": seconds}
+    for key in ("comp_rgb", "opacity", "depth", "comp_normal"):
+        res[key] = (card[key].cpu() - cpu[key])[same].abs().max().item()
+    if res["hit_flips"] > 1e-3 * n_rays or not max(
+            res[k] for k in ("comp_rgb", "opacity", "depth", "comp_normal")) <= 2e-3:
+        raise AssertionError(f"DMTet render, card against the CPU: {res}")
+    log(f"DMTet render card vs CPU: CPU seconds {seconds}")
+    return res
+
+
+def drive_dmtet(work: str, device: str = "cuda", size: str = "sd21",
+                clock: Optional[float] = None) -> dict:
+    """Main path 8, the DMTet family, through ``launch_torch.py --train`` of
+    each run of ``DMTET_RUNS`` at SD2.1 width with random weights, 512^2
+    renders, ``isosurface_resolution`` 128 with the default budget of 2^17
+    crossing tets (262,144 triangle slots), 1 test view. Per run: finite
+    losses; geometry stages moved the SDF, texture stages left it unchanged
+    (checksum) and moved the feature MLP; the test PNG, and for
+    Fantasia3D's geometry stage ``model.obj`` with vertices and faces and
+    the guidance branch of each step. On the card also: kernel B exactly one
+    launch per training step plus one per eval chunk, kernel A by batch and
+    C and D as ``VOLUME_PER_STEP`` says for the guidance; kernel B on the last
+    step's hit pass bit for bit against the plain caster (65,536 rays in
+    the first run, 16,384 after), with its time, pairs tested and bound;
+    the step's parts (``dmtet_breakdown``); and, for the first run, 2048
+    eval rays on the card against the CPU. Returns each run's numbers; raises on a failed
+    check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.models.guidance_sds import StableDiffusionGuidance
+    from dreammat_tpu_torch.models.mesh_rasterizer import MeshRasterizer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.systems.dreamfusion import DreamFusion
+    from dreammat_tpu_torch.systems.dreammat import DreamMat
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    kernels_a = (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+                 attn.flash_attention_bwd_dkv)
+    res = {"runs": {}, "cast_vs_plain": None, "render_vs_cpu": None}
+    for run, (config, steps, texture, _) in DMTET_RUNS.items():
+        last, branches = [], []
+        real_cast, real_sds = MeshRasterizer._cast, StableDiffusionGuidance.__call__
+
+        def cast(self, ro, rd, tri, valid):
+            if torch.is_grad_enabled():  # a training render (eval renders run under no_grad)
+                last[:] = [ro.float().contiguous(), rd.float().contiguous(), tri, valid]
+            return real_cast(self, ro, rd, tri, valid)
+
+        def sds(self, *a, **k):
+            branches.append("latent" if k.get("rgb_as_latents") else "rgb")
+            return real_sds(self, *a, **k)
+
+        MeshRasterizer._cast, StableDiffusionGuidance.__call__ = cast, sds
+        stages = StageLaunches()
+        stages.wrap(DreamMat, "fit", "train")
+        stages.wrap(DreamFusion, "test", "test")
+        for fn in kernels_a:
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            with AttentionBatches() as batches:
+                out = launch_torch.main(dmtet_argv(work, device, size, run))
+        finally:
+            MeshRasterizer._cast, StableDiffusionGuidance.__call__ = real_cast, real_sds
+            stages.restore()
+        sync()
+        system, trial, cfg = out["system"], out["trial_dir"], out["cfg"]
+        dm = out["datamodule"]
+        fresh = system.geometry.init(torch.Generator(device=device).manual_seed(cfg.seed))
+        geo = system.field.geo
+        step_s = list(system.step_seconds)
+        eval_chunks = math.ceil(dm.cfg.eval_height * dm.cfg.eval_width
+                                / system.renderer.cfg.eval_chunk_rays)
+        r = {"seconds": time.time() - t0, "system": type(system).__name__,
+             "guidance": type(system.guidance).__name__, "steps": steps, "texture": texture,
+             "render_hw": [dm.cfg.height, dm.cfg.width],
+             "isosurface_resolution": system.geometry.cfg.isosurface_resolution,
+             "slots": 2 * system.geometry.cfg.max_crossing_tets,
+             "ray_cast": dict(stages.counts), "eval_chunks": eval_chunks,
+             "stage_seconds": dict(stages.seconds),
+             "launches": {"flash_attn_fwd": kernels_a[0].launches,
+                          "flash_attn_bwd_dq": kernels_a[1].launches,
+                          "flash_attn_bwd_dkv": kernels_a[2].launches},
+             "flash_attn_fwd_by_batch": dict(batches.counts), "branches": branches,
+             "step_s": step_s, "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+             "test_s": list(system.test_seconds), "losses": list(system.step_losses),
+             "step_peak_gb": list(system.step_peak_gb),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+             "sdf_moved": (geo.sdf.detach() - fresh.sdf).abs().max().item(),
+             "sdf_changed": int(tensor_checksum(geo.sdf) != tensor_checksum(fresh.sdf)),
+             "feature_moved": max((p.detach() - q.detach()).abs().max().item() for p, q in zip(
+                 geo.feature_mlp.parameters(), fresh.feature_mlp.parameters()))}
+        if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"path 8 {run}: losses {r['losses']}")
+        if texture and not (r["sdf_changed"] == 0 and r["feature_moved"] > 0):
+            raise AssertionError(f"path 8 {run}: texture stage moved the SDF or not the "
+                                 f"features: {r['sdf_changed']}, {r['feature_moved']}")
+        if not texture and not r["sdf_moved"] > 0:
+            raise AssertionError(f"path 8 {run}: the SDF did not move")
+        save = os.path.join(trial, "save")
+        r["test_png"] = check_file(os.path.join(save, f"it{steps}-test", "0.png"),
+                                   b"\x89PNG\r\n\x1a\n", 100)
+        if run == "fantasia3d_geometry":
+            with open(os.path.join(save, "export", "model.obj")) as fh:
+                lines = fh.read().splitlines()
+            r["obj_v"] = sum(ln.startswith("v ") for ln in lines)
+            r["obj_f"] = sum(ln.startswith("f ") for ln in lines)
+            latent = dict(cfg.system)["latent_steps"]
+            if not (r["obj_v"] > 0 and r["obj_f"] > 0) or branches != [
+                    "latent" if i < latent else "rgb" for i in range(steps)]:
+                raise AssertionError(f"path 8 {run}: model.obj {r['obj_v']} v, {r['obj_f']} f;"
+                                     f" branches {branches}")
+        if cuda:
+            want = VOLUME_PER_STEP["prolificdreamer" if run.startswith("prolificdreamer")
+                                   else "dreamfusion"]
+            want_fwd = {b: n * steps for b, n in want["fwd_by_batch"].items()}
+            if (r["ray_cast"] != {"train": steps, "test": eval_chunks}
+                    or r["flash_attn_fwd_by_batch"] != want_fwd
+                    or r["launches"]["flash_attn_bwd_dq"] != want["dq"] * steps
+                    or r["launches"]["flash_attn_bwd_dkv"] != want["dkv"] * steps):
+                raise AssertionError(
+                    f"path 8 {run}: kernel B by stage {r['ray_cast']} (expected {steps} and "
+                    f"{eval_chunks}), kernel A by batch {r['flash_attn_fwd_by_batch']} "
+                    f"(expected {want_fwd}), C and D {r['launches']}")
+            t1 = time.time()
+            r["breakdown"] = dmtet_breakdown(system, last, render_rgb=not (
+                run.endswith("geometry")), profile=run == "fantasia3d_geometry")
+            r["breakdown"]["seconds"] = time.time() - t1
+            r["sync_check"] = dmtet_sync_check(system, last, render_rgb=not (
+                run.endswith("geometry")))
+        first = run == next(iter(DMTET_RUNS))
+        t1 = time.time()
+        r["cast_vs_plain"] = dmtet_cast_check(system, last, clock,
+                                              n_check=65536 if first else 16384)
+        r["check_seconds"] = {"cast_vs_plain": time.time() - t1}
+        if cuda and first:
+            t1 = time.time()
+            r["render_vs_cpu"] = dmtet_render_vs_cpu(system, dm, cfg)
+            r["check_seconds"]["render_vs_cpu"] = time.time() - t1
+        c = r["cast_vs_plain"]
+        log(f"dmtet {run} ({r['guidance']}, {r['render_hw'][0]}^2, DMTet "
+            f"{r['isosurface_resolution']}, {r['slots']} slots): launch_torch.py --train in "
+            f"{r['seconds']:.1f}s; kernel B by stage {r['ray_cast']}; kernel A by batch "
+            f"{r['flash_attn_fwd_by_batch']}, C {r['launches']['flash_attn_bwd_dq']}, D "
+            f"{r['launches']['flash_attn_bwd_dkv']}; branches {branches}; steps "
+            f"{', '.join(f'{x:.4f}s' for x in step_s)} (warm {r['warm_step_s']:.4f}s), peak "
+            f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])} (run {r['peak_gb'] or 0:.2f}"
+            f" GB); stage seconds {r['stage_seconds']}; test view "
+            f"{', '.join(f'{x:.3f}s' for x in r['test_s'])}; SDF moved {r['sdf_moved']:.3g}, "
+            f"changed {r['sdf_changed']}, features moved {r['feature_moved']:.3g}; losses "
+            f"{', '.join(f'{x:.6g}' for x in r['losses'])}; hit pass: {c['valid_slots']} valid "
+            f"slots, {c['checked']} rays bit for bit equal to the plain caster; checks "
+            f"{ {k: round(v, 2) for k, v in r['check_seconds'].items()} }"
+            + (f"; breakdown {r['breakdown']}" if "breakdown" in r else "")
+            + (f"; host syncs in the mesh part of a step {r['sync_check']['syncs']} (control "
+               f"{r['sync_check']['control_syncs_seen']})" if "sync_check" in r else "")
+            + (f"; {r['render_vs_cpu']['rays']} eval rays card vs CPU: hit flips "
+               f"{r['render_vs_cpu']['hit_flips']}, comp_rgb {r['render_vs_cpu']['comp_rgb']:.2e},"
+               f" opacity {r['render_vs_cpu']['opacity']:.2e}, depth "
+               f"{r['render_vs_cpu']['depth']:.2e}, comp_normal "
+               f"{r['render_vs_cpu']['comp_normal']:.2e} ({100 * r['render_vs_cpu']['hit_share']:.1f}"
+               f"% of rays hit)" if "render_vs_cpu" in r else ""))
+        res["runs"][run] = r
+        res["cast_vs_plain"] = c
+        res["render_vs_cpu"] = r.get("render_vs_cpu", res["render_vs_cpu"])
+        del out, system, fresh, last
+        if cuda:
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_dmtet(clock: float) -> dict:
+    """Main path 8 on the card (``drive_dmtet`` at SD2.1 width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_dmtet")
+    res = drive_dmtet(work, clock=clock)
+    res["counts"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                     for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    res["counts"]["ray_cast"] = sum(sum(r["ray_cast"].values()) for r in res["runs"].values())
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -2324,26 +2819,42 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, capability {torch.cuda.get_device_capability(0)}")
 
     t_all = time.time()
-    phase_build(args.out)
-    sass = check_sass()
+    phase_s = {}
+
+    def timed(name, fn, *a, **k):
+        """fn(*a, **k), its seconds added to ``phase_s[name]``."""
+        t0 = time.time()
+        try:
+            return fn(*a, **k)
+        finally:
+            phase_s[name] = phase_s.get(name, 0.0) + time.time() - t0
+
+    timed("build", phase_build, args.out)
+    sass = timed("sass", check_sass)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn_res = phase_attention(gen)
+    attn_res = timed("attention", phase_attention, gen)
     # the texcraft path's batches: SDS (2 replicas) and Perp-Neg SDS (4)
-    attn_sds = {B: phase_attention(gen, B) for B in (2, 4)}
+    attn_sds = {B: timed("attention_sds", phase_attention, gen, B) for B in (2, 4)}
     import yaml
 
     with open(TRAIN_CONFIG) as f:
         batch = yaml.safe_load(f)["train_batch_size"]
-    bwd_res = phase_attention_bwd(gen, batch)
+    bwd_res = timed("attention_bwd", phase_attention_bwd, gen, batch)
     # the volume path's shapes: kernel A at B = 2 (SDS and both VSD CFG
     # passes) and B = 1 (the LoRA regression), C and D at B = 1
-    attn_vol = {f"{lat}_b{B}": phase_attention(gen, B, shapes)
+    attn_vol = {f"{lat}_b{B}": timed("attention_volume", phase_attention, gen, B, shapes)
                 for lat, shapes in VOLUME_ATTN_SHAPES.items() for B in (2, 1)}
-    bwd_vol = {f"{lat}_b1": phase_attention_bwd(gen, 1, [(1, N, M, H) for N, M, H in shapes],
-                                                autograd_check=False)
+    bwd_vol = {f"{lat}_b1": timed("attention_volume", phase_attention_bwd, gen, 1,
+                                  [(1, N, M, H) for N, M, H in shapes], autograd_check=False)
                for lat, shapes in VOLUME_ATTN_SHAPES.items()}
+    # the DMTet path's VSD runs render at 512^2 (64^2 latents): kernel A at
+    # B = 1 (the LoRA regression; B = 2 is attn_sds's), C and D at B = 1
+    attn_vol["latent64_b1"] = timed("attention_dmtet", phase_attention, gen, 1, ATTN_SHAPES)
+    bwd_vol["latent64_b1"] = timed("attention_dmtet", phase_attention_bwd, gen, 1,
+                                   [(1, N, M, H) for N, M, H in ATTN_SHAPES],
+                                   autograd_check=False)
     vol_rows = volume_kernel_rows(attn_vol, bwd_vol)
-    cast_res = phase_ray_cast()
+    cast_res = timed("ray_cast", phase_ray_cast)
     counts = {"flash_attn_fwd": None, "ray_cast": None}
     cn_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
     l_counts = {"flash_attn_fwd": None, "ray_cast": None}
@@ -2351,23 +2862,27 @@ def main() -> int:
     o_counts = {"flash_attn_fwd": None, "ray_cast": None}
     t_counts = {"flash_attn_fwd": None, "ray_cast": None}
     v_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
-    main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = None
+    d_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None,
+                "ray_cast": None}
+    main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
     if not args.kernels_only:
-        main_res = phase_main(args.steps, args.views, args.out)
+        main_res = timed("main", phase_main, args.steps, args.views, args.out)
         counts = main_res["counts"]
-        cn_res = phase_controlnet(args.steps, batch, args.seed,
-                                  os.path.join("outputs", "chip_smoke_controlnet"))
+        cn_res = timed("controlnet", phase_controlnet, args.steps, batch, args.seed,
+                       os.path.join("outputs", "chip_smoke_controlnet"))
         cn_counts = cn_res["counts"]
-        launch_res = phase_launch(args.out, cast_res["clock"])
+        launch_res = timed("launch", phase_launch, args.out, cast_res["clock"])
         l_counts = launch_res["counts"]
-        user_res = phase_user_files(cast_res["clock"])
+        user_res = timed("user_files", phase_user_files, cast_res["clock"])
         u_counts = user_res["counts"]
-        opt_res = phase_options(cast_res["clock"], main_res["warm_step_s"])
+        opt_res = timed("options", phase_options, cast_res["clock"], main_res["warm_step_s"])
         o_counts = opt_res["counts"]
-        tex_res = phase_texcraft()
+        tex_res = timed("texcraft", phase_texcraft)
         t_counts = tex_res["counts"]
-        vol_res = phase_volume()
+        vol_res = timed("volume", phase_volume)
         v_counts = vol_res["counts"]
+        dmtet_res = timed("dmtet", phase_dmtet, cast_res["clock"])
+        d_counts = dmtet_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -2392,8 +2907,12 @@ def main() -> int:
                               "volume": v_counts["flash_attn_fwd"],
                               "volume_by_run_and_batch": vol_res and {
                                   run: r["flash_attn_fwd_by_batch"]
-                                  for run, r in vol_res["runs"].items()}},
-         "volume_shapes": vol_rows["flash_attn_fwd"],
+                                  for run, r in vol_res["runs"].items()},
+                              "dmtet": d_counts["flash_attn_fwd"],
+                              "dmtet_by_run_and_batch": dmtet_res and {
+                                  run: r["flash_attn_fwd_by_batch"]
+                                  for run, r in dmtet_res["runs"].items()}},
+         "volume_and_dmtet_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
              "lib_graph_ms", "bound_ms", "by")},
@@ -2416,8 +2935,9 @@ def main() -> int:
          "replaces": "dreammat_tpu/ops/attention.py:115",
          "launches": cn_counts["flash_attn_bwd_dq"],
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dq"],
-                              "volume": v_counts["flash_attn_bwd_dq"]},
-         "volume_shapes": vol_rows["flash_attn_bwd_dq"],
+                              "volume": v_counts["flash_attn_bwd_dq"],
+                              "dmtet": d_counts["flash_attn_bwd_dq"]},
+         "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
                             for r in res["rows"]),
          "ms": c["dq_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dq_bound_ms"],
@@ -2430,8 +2950,9 @@ def main() -> int:
          "replaces": "dreammat_tpu/ops/attention.py:146",
          "launches": cn_counts["flash_attn_bwd_dkv"],
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dkv"],
-                              "volume": v_counts["flash_attn_bwd_dkv"]},
-         "volume_shapes": vol_rows["flash_attn_bwd_dkv"],
+                              "volume": v_counts["flash_attn_bwd_dkv"],
+                              "dmtet": d_counts["flash_attn_bwd_dkv"]},
+         "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
          "ms": c["dkv_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["dkv_bound_ms"],
@@ -2455,12 +2976,21 @@ def main() -> int:
                               "texcraft": t_counts["ray_cast"],
                               "texcraft_by_stage": tex_res and {
                                   run: r["ray_cast_by_stage"]
-                                  for run, r in tex_res["runs"].items()}},
+                                  for run, r in tex_res["runs"].items()},
+                              "dmtet": d_counts["ray_cast"],
+                              "dmtet_by_run_and_stage": dmtet_res and {
+                                  run: r["ray_cast"] for run, r in dmtet_res["runs"].items()}},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
-                                        "by", "bound_all_pairs_ms", "flips", "face_diff")}
+                                        "by", "bound_all_pairs_ms", "flips", "face_diff",
+                                        "pairs_morton", "bound_tested_ms", "bound_morton_ms")
+                                if k in r}
                      for r in ((launch_res["ray_cast"] if launch_res else [])
                                + ([user_res["ray_cast_view"]] if user_res else [])
-                               + ([opt_res["ray_cast_sampled_view"]] if opt_res else []))],
+                               + ([opt_res["ray_cast_sampled_view"]] if opt_res else [])
+                               + ([{**r["cast_vs_plain"], "label": f"{run}: "
+                                    + r["cast_vs_plain"]["label"]}
+                                   for run, r in dmtet_res["runs"].items()]
+                                  if dmtet_res else []))],
          "max_abs_err": max(r["t_err"] for r in cast_res["rows"]),
          "sm_clock_mhz": b["sm_clock_mhz"],
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
@@ -2471,12 +3001,13 @@ def main() -> int:
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
-                   "volume": vol_res,
+                   "volume": vol_res, "dmtet": dmtet_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,
-                   "card": card}, f, indent=1,
+                   "phase_seconds": phase_s, "card": card}, f, indent=1,
                   default=str)
+    log(f"phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"total {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,15 @@
-"""Backgrounds of the volume systems.
+"""Backgrounds of the volume and mesh systems.
 
-Counterpart of ``neural-environment-map-background`` in
-``dreammat_tpu/models/background.py``: the ray direction's frequency
-encoding (``dir_encoding_frequencies``, the input included) through a
-small MLP (``mlp_n_hidden_layers`` x ``mlp_n_neurons``, ReLU) and the
-colour activation. Its trainable state is a ``BackgroundField`` module.
+Counterparts in ``dreammat_tpu/models/background.py``:
+
+- ``neural-environment-map-background``: the ray direction's frequency
+  encoding (``dir_encoding_frequencies``, the input included) through a
+  small MLP (``mlp_n_hidden_layers`` x ``mlp_n_neurons``, ReLU) and the
+  colour activation. Its trainable state is a ``BackgroundField`` module.
+- ``solid-color-background``: ``color`` tiled (or cut) to
+  ``n_output_dims``; with ``learned`` the colour is the trainable
+  ``color`` of a ``SolidColorField``, else the field holds nothing.
+
 (The DreamMat renderer composites over white and has no background
 object.)
 """
@@ -12,7 +17,9 @@ object.)
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -59,3 +66,37 @@ class NeuralEnvironmentMapBackground(BaseObject):
         """Directions [..., 3] -> colours [..., n_output_dims]."""
         enc = frequency_encode(dirs, self.cfg.dir_encoding_frequencies)
         return self.activation(mlp_lib.apply_mlp(field_.mlp, enc))
+
+
+class SolidColorField(nn.Module):
+    """The learned colour [n_output_dims], or nothing."""
+
+    def __init__(self, color: Optional[torch.Tensor] = None):
+        super().__init__()
+        if color is not None:
+            self.color = nn.Parameter(color)
+
+
+@dreammat_tpu_torch.register("solid-color-background")
+class SolidColorBackground(BaseObject):
+    @dataclass
+    class Config:
+        n_output_dims: int = 3
+        color: Tuple = (1.0, 1.0, 1.0)
+        learned: bool = False
+
+    cfg: Config
+
+    def configure(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.color = torch.from_numpy(np.resize(np.asarray(self.cfg.color, np.float32),
+                                                self.cfg.n_output_dims)).to(self.device)
+
+    def init(self, generator: torch.Generator) -> SolidColorField:
+        return SolidColorField(self.color.clone() if self.cfg.learned else None)
+
+    def __call__(self, dirs: torch.Tensor, field_: Optional[SolidColorField] = None
+                 ) -> torch.Tensor:
+        """Directions [..., 3] -> the colour [..., n_output_dims]."""
+        color = field_.color if field_ is not None and hasattr(field_, "color") else self.color
+        return color.expand(*dirs.shape[:-1], self.cfg.n_output_dims)

@@ -14,8 +14,8 @@ checkpoint into a port module (``load_diffusers_weights``, the torch ->
 flax direction's fallbacks: old VAE attention names, CLIP's bare
 ``position_embedding``, skipped ``position_ids`` buffers),
 ``geometry_params_from_numpy`` for the material field, the implicit
-volume and the background (``volume_scene_from_numpy`` for a volume
-system's whole scene), ``lora_state_from_numpy`` and
+volume, the DMTet grid and the backgrounds (``volume_scene_from_numpy``
+for a volume or mesh system's whole scene), ``lora_state_from_numpy`` and
 ``lora_layers_from_numpy`` for the VSD guidance's LoRA factors and camera
 embedding, and ``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
 JAX package's ``bert_params_from_torch``).
@@ -217,10 +217,14 @@ def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     material field ``{"table": [L,T,F], "mlp": {"w": [[in,out]...], "b":
     [[out]...]}}`` (``MaterialField``), the implicit volume ``{"table",
     "density_mlp", "feature_mlp", "normal_mlp"}`` (``VolumeField``, MLPs as
-    present) or the neural environment map ``{"mlp"}`` (``BackgroundField``)."""
+    present), the DMTet grid ``{"sdf", "deformation", "table",
+    "feature_mlp"}`` (``DMTetField``, as present), the neural environment
+    map ``{"mlp"}`` (``BackgroundField``) or the learned solid colour
+    ``{"color"}`` (``SolidColorField``)."""
     sd = {}
-    if "table" in params:
-        sd["table"] = torch.from_numpy(np.array(params["table"], dtype=np.float32))
+    for name in ("sdf", "deformation", "table", "color"):
+        if name in params:
+            sd[name] = torch.from_numpy(np.array(params[name], dtype=np.float32))
     for name in _FIELD_MLPS:
         if name not in params:
             continue
@@ -231,12 +235,14 @@ def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def volume_scene_from_numpy(geo: Mapping, bg: Mapping, occ) -> Dict[str, torch.Tensor]:
+def volume_scene_from_numpy(geo: Mapping, bg: Mapping, occ=None) -> Dict[str, torch.Tensor]:
     """The JAX volume systems' ``state["geo"]``, ``state["bg"]`` and
-    ``state["render"]["occ"]`` (numpy) -> a ``VolumeScene`` state dict."""
+    ``state["render"]["occ"]`` (numpy; none under the mesh rasterizer) ->
+    a ``VolumeScene`` state dict."""
     sd = {"geo." + k: v for k, v in geometry_params_from_numpy(geo).items()}
     sd.update({"bg." + k: v for k, v in geometry_params_from_numpy(bg).items()})
-    sd["occ"] = torch.from_numpy(np.array(occ, dtype=np.float32))
+    if occ is not None:
+        sd["occ"] = torch.from_numpy(np.array(occ, dtype=np.float32))
     return sd
 
 

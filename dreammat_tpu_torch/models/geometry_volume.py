@@ -210,3 +210,40 @@ class ImplicitVolume(BaseObject):
         enc = self._encode(field_, points)
         return {"features": mlp_lib.apply_mlp(field_.feature_mlp, enc).reshape(
             *points.shape[:-1], self.cfg.n_feature_dims)}
+
+
+def trilinear_sample(grid: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """Trilinear fetch from a dense [G1,G2,G3,C] grid at [..., 3] points in
+    [0, 1]: cell-centred with clamped borders (align_corners=False), as the
+    JAX package's ``trilinear_sample``. The corners are read with
+    ``index_select``, so the backward is ``index_add_``. The sizes enter
+    as Python numbers (no host-to-device copy)."""
+    G = grid.shape[:3]
+    f = torch.stack([x01[..., a] * G[a] for a in range(3)], dim=-1) - 0.5
+    i0 = torch.floor(f).long()
+    w = (f - i0)[..., None]
+    lo = torch.stack([torch.clamp(i0[..., a], 0, G[a] - 1) for a in range(3)], dim=-1)
+    hi = torch.stack([torch.clamp(i0[..., a] + 1, 0, G[a] - 1) for a in range(3)], dim=-1)
+    wx, wy, wz = w[..., 0, :], w[..., 1, :], w[..., 2, :]
+    flat = grid.reshape(-1, grid.shape[-1])
+    lead = x01.shape[:-1]
+
+    def at(ix, iy, iz):
+        idx = ((ix * G[1] + iy) * G[2] + iz).reshape(-1)
+        return flat.index_select(0, idx).reshape(*lead, grid.shape[-1])
+
+    c000 = at(lo[..., 0], lo[..., 1], lo[..., 2])
+    c100 = at(hi[..., 0], lo[..., 1], lo[..., 2])
+    c010 = at(lo[..., 0], hi[..., 1], lo[..., 2])
+    c110 = at(hi[..., 0], hi[..., 1], lo[..., 2])
+    c001 = at(lo[..., 0], lo[..., 1], hi[..., 2])
+    c101 = at(hi[..., 0], lo[..., 1], hi[..., 2])
+    c011 = at(lo[..., 0], hi[..., 1], hi[..., 2])
+    c111 = at(hi[..., 0], hi[..., 1], hi[..., 2])
+    c00 = c000 * (1 - wx) + c100 * wx
+    c10 = c010 * (1 - wx) + c110 * wx
+    c01 = c001 * (1 - wx) + c101 * wx
+    c11 = c011 * (1 - wx) + c111 * wx
+    c0 = c00 * (1 - wy) + c10 * wy
+    c1 = c01 * (1 - wy) + c11 * wy
+    return c0 * (1 - wz) + c1 * wz

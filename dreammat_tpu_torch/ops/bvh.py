@@ -323,7 +323,11 @@ _CAST_ARGTYPES = (
 def _tile_boxes(bvh: FlatBVH, tid: torch.Tensor, tile: int) -> torch.Tensor:
     """Boxes of consecutive ``tile``-triangle groups in leaf order, [n, 8]
     (min x, y, z, 0, max x, y, z, 0: two float4 per box), for the kernel's
-    cull. Padding and degenerate triangles (id -1) take no part."""
+    cull. Padding and degenerate triangles (id -1) take no part. A group
+    with no live triangle gets the box lo = hi = (+inf, +inf, +inf), which
+    the kernel's slab test meets with no ray (its slabs start at +inf or
+    end at -inf on every axis); the empty box lo = +inf, hi = -inf would
+    meet every ray (min and max of its slab bounds are -inf and +inf)."""
     v0 = bvh.tri_v0
     corners = torch.stack([v0, v0 + bvh.tri_e1, v0 + bvh.tri_e2])       # [3,T,3]
     dead = (tid < 0)[:, None]
@@ -333,6 +337,7 @@ def _tile_boxes(bvh: FlatBVH, tid: torch.Tensor, tile: int) -> torch.Tensor:
     pad = (-lo.shape[0]) % tile
     lo = torch.cat([lo, inf[:1].expand(pad, 3)]).reshape(-1, tile, 3).amin(1)
     hi = torch.cat([hi, -inf[:1].expand(pad, 3)]).reshape(-1, tile, 3).amax(1)
+    hi = torch.where(lo == float("inf"), lo, hi)   # no live triangle: lo = hi = +inf
     zero = torch.zeros_like(lo[:, :1])
     return torch.cat([lo, zero, hi, zero], dim=1).contiguous()
 

@@ -258,7 +258,7 @@ def sample_splitsum_specular(ss: dict, refl: torch.Tensor,
     levels), each read bilinearly, mixed linearly."""
     levels = ss["levels"]
     M = levels.shape[0]
-    r = torch.clamp(roughness_sq[..., 0], float(levels[0]), float(levels[-1]))
+    r = torch.clamp(roughness_sq[..., 0], levels[0], levels[-1])   # on the device: no sync
     idx = torch.clamp(torch.searchsorted(levels, r.contiguous(), right=True) - 1, 0, M - 2)
     lo, hi = levels[idx], levels[idx + 1]
     w = ((r - lo) / (hi - lo + 1e-9))[..., None]

@@ -15,6 +15,7 @@ H100 (``PERF.md``, Findings).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +65,14 @@ def _dense_index(coords: torch.Tensor, res: int, table_size: int) -> torch.Tenso
     return (idx & _U32) % table_size
 
 
+@functools.lru_cache(maxsize=None)
+def _corner_offsets(D: int, device: torch.device) -> torch.Tensor:
+    """[2^D, D] float32 0/1 offsets of a cell's corners, bit d of corner c
+    on axis d (put on ``device`` once)."""
+    return torch.tensor([[(c >> d) & 1 for d in range(D)] for c in range(1 << D)],
+                        dtype=torch.float32, device=device)
+
+
 def hashgrid_encode(table: torch.Tensor, points: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
     """table [L,T,F], points in [0,1]^D [..., D] -> features [..., L*F]."""
     D = cfg.n_input_dims
@@ -71,8 +80,7 @@ def hashgrid_encode(table: torch.Tensor, points: torch.Tensor, cfg: HashGridConf
     lead = points.shape[:-1]
     x = points.reshape(-1, D).float()
     C = 1 << D
-    offs = torch.tensor([[(c >> d) & 1 for d in range(D)] for c in range(C)],
-                        dtype=torch.float32, device=x.device)
+    offs = _corner_offsets(D, x.device)
     outs = []
     for lvl, res in enumerate(cfg.level_resolutions()):
         res = int(res)

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 
 import dreammat_tpu_torch
+from dreammat_tpu_torch.ops import dmtet
 from dreammat_tpu_torch.systems.dreammat import DreamMat
 from dreammat_tpu_torch.systems.optimizers import parse_optimizer
 from dreammat_tpu_torch.utils import saving
@@ -43,11 +44,17 @@ def binary_cross_entropy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -(y * torch.log(x) + (1 - y) * torch.log(1 - x)).mean()
 
 
+def as_image(x: torch.Tensor, batch: Dict[str, Any]) -> torch.Tensor:
+    """Per-ray values [H*W, C] of a training batch -> an image [1, C, H, W]."""
+    return x.reshape(1, batch["height"], batch["width"], -1).permute(0, 3, 1, 2)
+
+
 class VolumeScene(nn.Module):
     """A volume system's state: ``geo`` (the geometry's field), ``bg`` (the
-    background's) and the occupancy grid ``occ`` [G,G,G] (a buffer)."""
+    background's) and the occupancy grid ``occ`` [G,G,G] (a buffer; None
+    under the mesh rasterizer, which has no grid)."""
 
-    def __init__(self, geo: nn.Module, bg: nn.Module, occ: torch.Tensor):
+    def __init__(self, geo: nn.Module, bg: nn.Module, occ: Optional[torch.Tensor]):
         super().__init__()
         self.geo = geo
         self.bg = bg
@@ -95,11 +102,13 @@ class DreamFusion(DreamMat):
     def step_kind(self, batch: Dict[str, Any]) -> str:
         return "volume"
 
-    def render_batch(self, batch: Dict[str, Any], draws, is_train: bool):
+    def render_batch(self, batch: Dict[str, Any], draws, is_train: bool, **kw):
+        """The batch's rays through the renderer (``kw``: the rasterizer's
+        ``render_rgb``)."""
         f = self.field
         return self.renderer.render_rays(f.geo, f.bg, f.occ, batch["rays_o"], batch["rays_d"],
                                          batch["light_positions"], draws,
-                                         step=self.global_step, is_train=is_train)
+                                         step=self.global_step, is_train=is_train, **kw)
 
     def regularizers(self, out: Dict[str, torch.Tensor], step: int):
         """(weighted sum, metrics) of the orient, sparsity and opaque losses."""
@@ -118,13 +127,40 @@ class DreamFusion(DreamMat):
         loss = loss + C(loss_cfg.get("lambda_opaque", 0.0), step) * metrics["loss_opaque"]
         return loss, metrics
 
+    def mesh_regularizers(self, out: Dict[str, torch.Tensor], step: int,
+                          laplacian: bool = False):
+        """(weighted sum, metrics) of a DMTet stage's losses over the render's
+        soup: ``normal_consistency`` (on the vertex normals the render
+        computed) and, with ``laplacian`` and its lambda set,
+        ``laplacian_smoothness``."""
+        loss_cfg = dict(self.cfg.loss)
+        metrics = {"loss_normal_consistency": dmtet.normal_consistency(
+            *out["mesh"], vn=out["vertex_normals"])}
+        loss = C(loss_cfg.get("lambda_normal_consistency", 0.0), step) \
+            * metrics["loss_normal_consistency"]
+        lam_lap = loss_cfg.get("lambda_laplacian_smoothness", 0.0)
+        if laplacian and lam_lap:
+            metrics["loss_laplacian_smoothness"] = dmtet.laplacian_smoothness(*out["mesh"])
+            loss = loss + C(lam_lap, step) * metrics["loss_laplacian_smoothness"]
+        return loss, metrics
+
+    def train_render_kw(self) -> Dict[str, Any]:
+        """The renderer's keyword arguments in a training step."""
+        return {}
+
+    def guidance_input(self, out: Dict[str, torch.Tensor], batch: Dict[str, Any]):
+        """(image [1,C,H,W], guidance keyword arguments) of a training render."""
+        return as_image(out["comp_rgb"], batch), {}
+
     def train_step(self, batch: Dict[str, Any], draws) -> Dict[str, torch.Tensor]:
+        """Render, SDS on ``guidance_input``, plus ``regularizers``; one
+        backward and one optimizer step."""
         step = self.global_step
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.render_batch(batch, draws, is_train=True)
-        rgb = out["comp_rgb"].reshape(1, batch["height"], batch["width"], 3).permute(0, 3, 1, 2)
-        g = self.guidance(rgb, self.prompt_utils, batch["elevation"], batch["azimuth"],
-                          batch["camera_distances"], None, step=step, draws=draws)
+        out = self.render_batch(batch, draws, is_train=True, **self.train_render_kw())
+        img, kw = self.guidance_input(out, batch)
+        g = self.guidance(img, self.prompt_utils, batch["elevation"], batch["azimuth"],
+                          batch["camera_distances"], None, step=step, draws=draws, **kw)
         reg, metrics = self.regularizers(out, step)
         loss = C(dict(self.cfg.loss).get("lambda_sds", 1.0), step) * g["loss_sds"] + reg
         loss.backward()

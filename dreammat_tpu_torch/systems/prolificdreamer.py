@@ -1,16 +1,29 @@
-"""ProlificDreamer system, coarse stage: text-to-3D by VSD over a NeRF volume.
+"""ProlificDreamer system: text-to-3D by VSD, coarse, geometry and texture stages.
 
 Counterpart of ``prolificdreamer-system`` in
 ``dreammat_tpu/systems/prolificdreamer.py``: the DreamFusion runtime with
 the ``no-material`` (raw colour) and the VSD guidance. The loss is every
 ``loss_*`` the guidance returns weighted by its scheduled ``lambda_*``
-(default 1), plus the orient, sparsity and opaque losses and the HiFA
-z-variance over pixels of opacity > 0.5 as a masked mean. One backward
-serves both optimizers: the scene's and, over the guidance's LoRA state
+(default 1), and by stage:
+
+- ``coarse``: a NeRF volume, plus the orient, sparsity and opaque losses
+  and the HiFA z-variance over pixels of opacity > 0.5 as a masked mean;
+- ``geometry``: an ``implicit-volume`` geometry becomes
+  ``tetrahedra-sdf-grid`` and the ``nerf-volume-renderer`` becomes
+  ``nvdiff-rasterizer``; the rasterizer renders no colour and the guidance
+  scores ``comp_normal``; plus ``normal_consistency`` and, when its lambda
+  is set, ``laplacian_smoothness`` of the soup;
+- ``texture``: the same types; the guidance scores ``comp_rgb`` with no
+  other loss.
+
+The strict config parse stays: a geometry or renderer block written for
+the volume (``normal_type``, ``num_samples_per_ray``, ...) does not parse as
+DMTet's or the rasterizer's, so a run of the refinement stages from
+``configs/prolificdreamer.yaml`` replaces those blocks. One backward serves
+both optimizers: the scene's and, over the guidance's LoRA state
 (``init_lora`` at ``on_fit_start``), its own ``optimizer_lora``, stepped
 after the scene's. Checkpoints hold both (``lora.*`` keys beside the
-scene's). The ``geometry`` and ``texture`` stages (DMTet and the
-rasterizer) are not ported and raise.
+scene's).
 """
 
 from __future__ import annotations
@@ -22,7 +35,8 @@ from typing import Any, Dict
 import torch
 
 import dreammat_tpu_torch
-from dreammat_tpu_torch.systems.dreamfusion import DreamFusion
+from dreammat_tpu_torch.systems.dreamfusion import DreamFusion, as_image
+from dreammat_tpu_torch.systems.magic3d import switch_to_dmtet
 from dreammat_tpu_torch.systems.optimizers import parse_optimizer
 from dreammat_tpu_torch.utils.ckpt import save_checkpoint
 from dreammat_tpu_torch.utils.schedule import C
@@ -49,9 +63,7 @@ class ProlificDreamer(DreamFusion):
         if self.cfg.stage not in ("coarse", "geometry", "texture"):
             raise ValueError(f"Unknown stage {self.cfg.stage}")
         if self.cfg.stage != "coarse":
-            raise NotImplementedError(
-                f"prolificdreamer stage '{self.cfg.stage}' needs DMTet and the rasterizer, "
-                "which are not ported yet (ROADMAP queue 1)")
+            switch_to_dmtet(self.cfg)
         super().configure(device)
         self.lora = None
         self.optimizer_lora = None
@@ -71,15 +83,22 @@ class ProlificDreamer(DreamFusion):
                     self.optimizer_lora.load_state_dict(opt)
                 self._pending_lora = None
 
+    def train_render_kw(self) -> Dict[str, Any]:
+        return {"render_rgb": False} if self.cfg.stage == "geometry" else {}
+
+    def guidance_input(self, out: Dict[str, torch.Tensor], batch: Dict[str, Any]):
+        key = "comp_normal" if self.cfg.stage == "geometry" else "comp_rgb"
+        return as_image(out[key], batch), {}
+
     def train_step(self, batch: Dict[str, Any], draws) -> Dict[str, torch.Tensor]:
         step = self.global_step
         loss_cfg = dict(self.cfg.loss)
         self.optimizer.zero_grad(set_to_none=True)
         if self.optimizer_lora is not None:
             self.optimizer_lora.zero_grad(set_to_none=True)
-        out = self.render_batch(batch, draws, is_train=True)
-        rgb = out["comp_rgb"].reshape(1, batch["height"], batch["width"], 3).permute(0, 3, 1, 2)
-        args = (rgb, self.prompt_utils, batch["elevation"], batch["azimuth"],
+        stage = self.cfg.stage
+        out = self.render_batch(batch, draws, is_train=True, **self.train_render_kw())
+        args = (self.guidance_input(out, batch)[0], self.prompt_utils, batch["elevation"], batch["azimuth"],
                 batch["camera_distances"])
         if self.lora is not None:
             g = self.guidance(*args, c2w=batch["c2w"], lora=self.lora, step=step, draws=draws)
@@ -90,13 +109,18 @@ class ProlificDreamer(DreamFusion):
             if name.startswith("loss_"):
                 loss = loss + C(loss_cfg.get("lambda_" + name[5:], 1.0), step) * value
                 metrics[name] = value
-        reg, reg_metrics = self.regularizers(out, step)
-        metrics.update(reg_metrics)
-        m = (out["opacity"] > 0.5).float()
-        metrics["loss_z_variance"] = torch.sum(out["z_variance"] * m) / torch.clamp(m.sum(),
-                                                                                   min=1.0)
-        loss = loss + reg + C(loss_cfg.get("lambda_z_variance", 0.0), step) \
-            * metrics["loss_z_variance"]
+        if stage == "coarse":
+            reg, reg_metrics = self.regularizers(out, step)
+            metrics.update(reg_metrics)
+            m = (out["opacity"] > 0.5).float()
+            metrics["loss_z_variance"] = torch.sum(out["z_variance"] * m) / torch.clamp(
+                m.sum(), min=1.0)
+            loss = loss + reg + C(loss_cfg.get("lambda_z_variance", 0.0), step) \
+                * metrics["loss_z_variance"]
+        elif stage == "geometry":
+            reg, reg_metrics = self.mesh_regularizers(out, step, laplacian=True)
+            metrics.update(reg_metrics)
+            loss = loss + reg
         loss.backward()
         self.optimizer.step()
         if self.optimizer_lora is not None:

@@ -9,7 +9,10 @@ The flag surface of ``launch.py``:
 the test renders of the eval circle and the OBJ/MTL export; the volume
 systems (``configs/dreamfusion.yaml``, ``configs/prolificdreamer.yaml``)
 have no prerender, render their test views by volume rendering and export
-the density isosurface as an OBJ with vertex colours;
+the density isosurface as an OBJ with vertex colours, and the DMTet systems
+(``configs/fantasia3d.yaml``, Magic3D's refinement, ProlificDreamer's
+``geometry`` and ``texture`` stages) the same through the mesh rasterizer
+and the SDF's level set;
 ``--validate`` / ``--test`` / ``--export`` run one of them from a
 checkpoint given by ``--resume``. A UV-space field
 (``system.geometry.n_input_dims=2``) cannot be exported (the reference
