@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about six minutes
+    python3 chip_smoke.py                 # everything, about eight minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -199,7 +199,30 @@ which fails the run on any error:
    the hits differ, 2e-3 where they agree). Each run's seconds, warm step and peak memory are printed. The
    same runs go on the CPU at tiny size with ``drive_dmtet(work,
    device="cpu", size="tiny")``.
-14. A ``{"kernels": [...]}`` line, the card's line, and last
+14. Main path 9: the rest of the volume family (``drive_volume_rest``),
+   four ``launch_torch.main(["--config", ..., "--train", ...])`` runs under
+   ``outputs/chip_smoke_volume_rest/`` at SD2.1 width, random weights, 3
+   steps with the occupancy refresh every 2, 1 test view
+   (``VOLUME_REST_RUNS``): Latent-NeRF (``configs/sjc_tiny.yaml`` with
+   ``latentnerf-system`` and the guidance, prompt, geometry and renderer
+   blocks replaced: an ``implicit-volume`` at the JAX defaults with 4
+   latent channels, 512^2 renders through the ``patch-renderer``, a 128^2
+   patch and a 128^2 strided global pass of 512 samples a ray, the torus of
+   main path 3 as guide shape baked at 64^3, eval at 64^2 decoded to
+   512^2), its refinement (RGB through ``sd-latent-adapter-material`` and
+   the VAE encode, eval at 512^2), SJC (the same renders of a 100^3
+   ``volume-grid`` over a 64 x 64 ``textured-background``) and TextMesh
+   (``configs/textmesh.yaml``, NeuS over ``implicit-sdf``, cut to 64^2).
+   Per run: finite losses and parameters, the field moved (checksums) and
+   TextMesh's NeuS variance, the grid refreshed at init and at steps 0 and
+   2, the test PNG and ``model.obj`` (level 5, the grid's 1, the SDF's 0);
+   kernel A exactly 32 launches a step at B = 2, C, D and B none; the
+   guide's winding grid on the card against the CPU at 2048 voxels (at
+   most 1e-3 flip inside/outside); 2048 rays of eval view 0 on the card
+   and on the CPU within 2e-3. Each run's seconds, warm step, peak memory
+   and test-view seconds are printed. The same runs go on the CPU at tiny
+   size with ``drive_volume_rest(work, device="cpu", size="tiny")``.
+15. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -2148,7 +2171,9 @@ def volume_render_vs_cpu(system, dm, cfg, n_rays: int = 2048) -> dict:
     the same system built on the CPU: max |diff| of the composited colour
     and opacity and the relative max |diff| of the depth. Tolerance 2e-3:
     the finite-difference normals divide fp32 density differences by 0.01,
-    and the samples run through the same occupancy grid (a copy) on both."""
+    and the samples run through the same occupancy grid (a copy) on both.
+    NeuS renders with the scene's variance; the CPU system is built without
+    a guide shape (its bake plays no part in a render)."""
     import copy
 
     import dreammat_tpu_torch
@@ -2158,14 +2183,16 @@ def volume_render_vs_cpu(system, dm, cfg, n_rays: int = 2048) -> dict:
     idx = torch.linspace(0, ro.shape[0] - 1, n_rays, device=ro.device).long()
     ro, rd = ro[idx], rd[idx]
     lp = batch["light_position"].reshape(1, 3).expand_as(ro)
-    cpu_sys = dreammat_tpu_torch.find(cfg.system_type)(cfg.system, device="cpu")
+    cpu_cfg = {**cfg.system, "guide_shape": None} if "guide_shape" in cfg.system else cfg.system
+    cpu_sys = dreammat_tpu_torch.find(cfg.system_type)(cpu_cfg, device="cpu")
     field = copy.deepcopy(system.field).cpu()
     step = system.global_step
+    kw = lambda f: {"var": f.var} if hasattr(f, "var") else {}
     with torch.no_grad():
         card = system.renderer.render_rays(system.field.geo, system.field.bg, system.field.occ,
-                                           ro, rd, lp, None, step=step)
+                                           ro, rd, lp, None, step=step, **kw(system.field))
         cpu = cpu_sys.renderer.render_rays(field.geo, field.bg, field.occ, ro.cpu(), rd.cpu(),
-                                           lp.cpu(), None, step=step)
+                                           lp.cpu(), None, step=step, **kw(field))
     res = {"rays": n_rays, "hit_share": float((cpu["opacity"] > 0.5).float().mean())}
     for key in ("comp_rgb", "opacity", "depth"):
         diff = (card[key].cpu() - cpu[key]).abs().max().item()
@@ -2796,6 +2823,313 @@ def phase_dmtet(clock: float) -> dict:
     return res
 
 
+# Main path 9, the rest of the volume family: Latent-NeRF's latent stage and
+# its refinement and SJC on configs/sjc_tiny.yaml with its blocks replaced
+# (SD2.1 width, 512^2 renders through the patch renderer), and TextMesh on
+# configs/textmesh.yaml, its renders cut from 512^2 to 64^2: NeuS takes all
+# 512 samples of every ray with the finite-difference normals (4 hash-grid
+# queries a sample), and 128^2 ran out of the card's 80 GB. Each run is
+# (config, overrides at SD2.1 width, overrides of the CPU tiny form, the
+# isosurface level of the export).
+VOLUME_REST_PATCH = ("system.renderer!={patch_size: %d, global_downsample: 4, base_renderer: "
+                     "{radius: 1.0, num_samples_per_ray: %d, grid_resolution: %d, "
+                     "grid_update_every: 2, eval_chunk_rays: %d}}")
+VOLUME_REST_SD21 = [
+    "system.guidance!={model_size: sd21, half_precision_weights: true, use_controlnet: false, "
+    "guidance_scale: 100.0, width: 512, height: 512, cache_dir: null}",
+    "system.prompt_processor!={model_size: sd21, prompt: a ceramic vase, use_cache: false}",
+    "system.renderer_type=patch-renderer", VOLUME_REST_PATCH % (128, 512, 32, 8192),
+    "data.width=512", "data.height=512",
+]
+VOLUME_REST_TINY = [
+    "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+    "system.guidance.width=24", "system.guidance.height=24",
+    "system.prompt_processor.model_size=tiny", "system.prompt_processor.use_cache=false",
+    "system.renderer_type=patch-renderer", VOLUME_REST_PATCH % (8, 32, 8, 256),
+    "data.width=24", "data.height=24",
+]
+VOLUME_REST_LATENT = ["system_type=latentnerf-system", "system.loss.lambda_shape=1.0"]
+VOLUME_REST_RUNS = {
+    "latentnerf": ("configs/sjc_tiny.yaml", VOLUME_REST_LATENT + VOLUME_REST_SD21 + [
+        "system.geometry!={radius: 1.0, n_feature_dims: 4}", "system.guide_shape_grid_res=64",
+        "data.eval_width=64", "data.eval_height=64"],
+        VOLUME_REST_LATENT + VOLUME_REST_TINY + ["system.guide_shape_grid_res=12"], 5.0),
+    "latentnerf_refine": ("configs/sjc_tiny.yaml", VOLUME_REST_LATENT + VOLUME_REST_SD21 + [
+        "system.geometry!={radius: 1.0, n_feature_dims: 4}", "system.guide_shape_grid_res=64",
+        "system.refinement=true", "system.material_type=sd-latent-adapter-material",
+        "system.material!={}", "data.eval_width=512", "data.eval_height=512"],
+        VOLUME_REST_LATENT + VOLUME_REST_TINY + [
+            "system.guide_shape_grid_res=12", "system.refinement=true",
+            "system.material_type=sd-latent-adapter-material", "system.material!={}"], 5.0),
+    "sjc": ("configs/sjc_tiny.yaml", [
+        "system.guidance.model_size=sd21", "system.guidance.half_precision_weights=true",
+        "system.guidance.width=512", "system.guidance.height=512",
+        "system.prompt_processor.model_size=sd21", *VOLUME_REST_SD21[2:],
+        "system.geometry_type=volume-grid",
+        "system.geometry!={grid_size: [100, 100, 100], n_feature_dims: 4}",
+        "system.background_type=textured-background",
+        "system.background!={n_output_dims: 4, height: 64, width: 64, color_activation: none}",
+        "data.eval_width=64", "data.eval_height=64"], VOLUME_REST_TINY + [
+            "system.geometry_type=volume-grid",
+            "system.geometry!={grid_size: [16, 16, 16], n_feature_dims: 4}",
+            "system.background_type=textured-background",
+            "system.background!={n_output_dims: 4, height: 8, width: 8, "
+            "color_activation: none}"], 1.0),
+    "textmesh": ("configs/textmesh.yaml", [
+        "system.renderer.grid_update_every=2", "data.width=64", "data.height=64",
+        "data.eval_width=64", "data.eval_height=64"], [
+            "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+            "system.guidance.width=24", "system.guidance.height=24",
+            "system.prompt_processor.model_size=tiny", "system.prompt_processor.use_cache=false",
+            "system.geometry.pos_encoding_config.n_levels=4",
+            "system.geometry.pos_encoding_config.log2_hashmap_size=10",
+            "system.geometry.pos_encoding_config.base_resolution=4",
+            "system.geometry.pos_encoding_config.per_level_scale=1.5",
+            "system.geometry.isosurface_resolution=24", "system.renderer.num_samples_per_ray=32",
+            "system.renderer.grid_resolution=8", "system.renderer.eval_chunk_rays=256",
+            "system.renderer.grid_update_every=2", "data.width=24", "data.height=24",
+            "data.eval_width=24", "data.eval_height=24"], 0.0),
+}
+
+
+def volume_rest_argv(work: str, device: str, size: str, run: str, steps: int,
+                     guide: Optional[str]) -> list:
+    """``launch_torch.py --train`` of run ``run`` of ``VOLUME_REST_RUNS``:
+    random weights, ``steps`` steps, 1 test view, no validation or
+    checkpoint, the isosurface export at the run's level; the Latent-NeRF
+    runs with the ``guide`` mesh as their guide shape."""
+    config, sd21, tiny, level = VOLUME_REST_RUNS[run]
+    argv = ["--config", config, "--train", "--device", device,
+            "system.prompt_processor.prompt=a ceramic vase",
+            "system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
+            "data.n_test_views=1", f"trainer.max_steps={steps}", "trainer.val_check_interval=0",
+            "checkpoint.every_n_train_steps=0", f"exp_root_dir={work}/runs_{run}",
+            "use_timestamp=false"] + (tiny if size == "tiny" else sd21)
+    argv.append(f"system.geometry.isosurface_threshold={level}")
+    if run.startswith("latentnerf"):
+        argv.append(f"system.guide_shape={guide}")
+    return argv
+
+
+def guide_vs_cpu(system, n_check: int = 2048) -> dict:
+    """The guide's winding-number grid baked on the card against the same
+    bake on the CPU at ``n_check`` voxels drawn from the lattice (the whole
+    lattice on the CPU would take minutes): the share whose inside/outside
+    indicator differs (at most 1e-3: grazing sums) and the max |diff|."""
+    from dreammat_tpu_torch.models.mesh import _LOADERS
+    from dreammat_tpu_torch.ops import shape_loss as shape_ops
+
+    grid = system.shape_grid
+    G = grid.winding.shape[0]
+    tri = torch.from_numpy(shape_ops.guide_triangles(*_LOADERS[".obj"](system.cfg.guide_shape)[:2]))
+    idx = torch.randperm(G ** 3, generator=torch.Generator().manual_seed(0))[:n_check]
+    g = torch.linspace(-grid.bound, grid.bound, G)
+    pts = torch.stack([g[idx // (G * G)], g[(idx // G) % G], g[idx % G]], dim=-1)
+    t0 = time.time()
+    cpu = shape_ops.winding_number(pts, tri, chunk=256)
+    card = grid.winding.reshape(-1)[idx.to(grid.winding.device)].cpu()
+    flips = int(((card > 0.5) != (cpu > 0.5)).sum())
+    res = {"voxels": int(idx.numel()), "grid": G, "inside_share": float((cpu > 0.5).float().mean()),
+           "indicator_flips": flips, "max_abs_diff": float((card - cpu).abs().max()),
+           "cpu_s": time.time() - t0}
+    if flips > 1e-3 * idx.numel() or not 0 < res["inside_share"] < 1:
+        raise AssertionError(f"guide grid, card against the CPU: {res}")
+    return res
+
+
+def volume_rest_breakdown(system, dm, step: int) -> dict:
+    """CUDA-event ms of a training render's forward and backward on a fresh
+    batch (``render``), and for the patch renderer its global pass, its
+    patch pass (each forward and backward) and the merge (forward): the
+    render's share of a step."""
+    from dreammat_tpu_torch.models.volume_renderer import PrefixedDraws
+    from dreammat_tpu_torch.utils.rng import TorchDraws
+
+    batch = dm.collate(step=step)
+    draws = TorchDraws(step, system.device)
+    params = list(system.field.parameters())
+
+    def backward(out):
+        (out["comp_rgb"].float().sum() + out["opacity"].sum()).backward()
+        for p in params:
+            p.grad = None
+
+    res = {"render": cuda_ms(lambda: backward(system.render_batch(batch, draws, True)), 3)}
+    r = system.renderer
+    if hasattr(r, "merge"):
+        f = system.field
+        H = W = batch["height"]
+        ds, PS = r.cfg.global_downsample, min(r.cfg.patch_size, H)
+        grids = [batch[k].reshape(H, W, 3) for k in ("rays_o", "rays_d", "light_positions")]
+        sub = [x[ds // 2::ds, ds // 2::ds].reshape(-1, 3) for x in grids]
+        patch = [x[:PS, :PS].reshape(-1, 3) for x in grids]
+        run = lambda rays, prefix: r.base.render_rays(
+            f.geo, f.bg, f.occ, *rays, PrefixedDraws(draws, prefix), step=step, is_train=True)
+        res["global_pass"] = cuda_ms(lambda: backward(run(sub, "global/")), 3)
+        res["patch_pass"] = cuda_ms(lambda: backward(run(patch, "patch/")), 3)
+        with torch.no_grad():
+            out_g, out_p = run(sub, "global/"), run(patch, "patch/")
+        res["merge"] = cuda_ms(lambda: r.merge(out_g, out_p, H, W, 0, 0), 10)
+    return res
+
+
+def drive_volume_rest(work: str, device: str = "cuda", size: str = "sd21",
+                      steps: int = 3) -> dict:
+    """Main path 9 through ``launch_torch.py --train`` of each run of
+    ``VOLUME_REST_RUNS`` (``volume_rest_argv``): Latent-NeRF (4 latent
+    channels, a 512^2 render through the patch renderer, 128^2 patch and
+    128^2 strided global pass, guide shape the torus of main path 3 baked at
+    64^3, eval at 64^2 decoded to 512^2), its refinement (RGB with
+    ``sd-latent-adapter-material`` and the VAE encode, eval at 512^2), SJC (a
+    100^3 ``volume-grid`` and a 64 x 64 ``textured-background``, as
+    Latent-NeRF's renders) and TextMesh (NeuS over ``implicit-sdf``,
+    ``configs/textmesh.yaml`` cut to 64^2), at SD2.1 width with random
+    weights, ``steps`` steps with the occupancy refresh every 2, 1 test view.
+    Per run: finite losses and parameters; the field moved (checksums), and
+    for TextMesh the NeuS variance; the occupancy grid refreshed at init and
+    at every second step; the test PNG, and ``model.obj`` with vertices and
+    faces at the run's level; for Latent-NeRF the guide's grid on the card
+    against the CPU (``guide_vs_cpu``). On the card also kernel A exactly 32
+    launches a step at B = 2 and C, D and B none, 2048 rays of eval view 0
+    on the card and on the CPU within 2e-3 (``volume_render_vs_cpu``: through
+    the patch renderer's hand-over to the base renderer, or NeuS), and the
+    render's share of a step (``volume_rest_breakdown``).
+    Returns each run's numbers; raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
+    from dreammat_tpu_torch.models.volume_renderer import NeRFVolumeRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    guide = write_obj(os.path.join(work, "torus.obj"),
+                      *torus_arrays(0.7, 0.28, *((192, 96) if size != "tiny" else (24, 12))))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv,
+                "ray_cast": bvh_lib.cast_rays_dense}
+    res = {"runs": {}}
+    for run in VOLUME_REST_RUNS:
+        refreshes, start = [], {}
+        real_update = NeRFVolumeRenderer.update_occ
+
+        def update_occ(self, geo_field, *a, **k):
+            if not refreshes:  # init_state's refresh: the field as training starts
+                start.update({n: tensor_checksum(p) for n, p in geo_field.named_parameters()})
+            refreshes.append(1)
+            return real_update(self, geo_field, *a, **k)
+
+        NeRFVolumeRenderer.update_occ = update_occ
+        for fn in counters.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            with AttentionBatches() as batches:
+                out = launch_torch.main(volume_rest_argv(work, device, size, run, steps, guide))
+        finally:
+            NeRFVolumeRenderer.update_occ = real_update
+        sync()
+        system, trial, cfg = out["system"], out["trial_dir"], out["cfg"]
+        step_s = list(system.step_seconds)
+        field = system.field
+        r = {"seconds": time.time() - t0, "system": type(system).__name__,
+             "renderer": type(system.renderer).__name__,
+             "geometry": type(system.geometry).__name__,
+             "render_hw": [out["datamodule"].cfg.height, out["datamodule"].cfg.width],
+             "eval_hw": [out["datamodule"].cfg.eval_height, out["datamodule"].cfg.eval_width],
+             "launches": {k: fn.launches for k, fn in counters.items()},
+             "flash_attn_fwd_by_batch": dict(batches.counts), "occ_refreshes": len(refreshes),
+             "step_s": step_s, "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+             "test_s": list(system.test_seconds), "losses": list(system.step_losses),
+             "step_peak_gb": list(system.step_peak_gb),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+             "geo_moved": sum(tensor_checksum(p) != start[n]
+                              for n, p in field.geo.named_parameters()),
+             "geo_tensors": len(start)}
+        if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"path 9 {run}: losses {r['losses']}")
+        if not all(torch.isfinite(p).all() for p in field.parameters()):
+            raise AssertionError(f"path 9 {run}: a parameter is not finite")
+        if r["geo_moved"] == 0:
+            raise AssertionError(f"path 9 {run}: the field did not move")
+        if hasattr(field, "var"):
+            r["inv_std_raw"] = float(field.var._inv_std.detach())
+            if r["inv_std_raw"] == system.renderer.cfg.learned_variance_init:
+                raise AssertionError(f"path 9 {run}: the NeuS variance did not move")
+        with torch.no_grad():
+            dens = system.geometry.apply(field.geo, torch.zeros(1, 3, device=device))
+        r["centre_value"] = float(dens.get("density", dens.get("sdf"))[0, 0])
+        if not math.isfinite(r["centre_value"]):
+            raise AssertionError(f"path 9 {run}: the field at the centre is {r['centre_value']}")
+        if r["occ_refreshes"] != 1 + len(range(0, steps, 2)):
+            raise AssertionError(f"path 9 {run}: {r['occ_refreshes']} occupancy refreshes")
+        save = os.path.join(trial, "save")
+        r["test_png"] = check_file(os.path.join(save, f"it{steps}-test", "0.png"),
+                                   b"\x89PNG\r\n\x1a\n", 100)
+        with open(os.path.join(save, "export", "model.obj")) as f:
+            lines = f.read().splitlines()
+        r["obj_v"] = sum(ln.startswith("v ") for ln in lines)
+        r["obj_f"] = sum(ln.startswith("f ") for ln in lines)
+        if not (r["obj_v"] > 0 and r["obj_f"] > 0):
+            raise AssertionError(f"path 9 {run}: model.obj has {r['obj_v']} v, {r['obj_f']} f")
+        if run == "latentnerf":  # the refinement bakes the same grid
+            r["guide_vs_cpu"] = guide_vs_cpu(system)
+        if cuda:
+            r["render_vs_cpu"] = volume_render_vs_cpu(system, out["datamodule"], cfg)
+            r["render_ms"] = volume_rest_breakdown(system, out["datamodule"], steps)
+            r["render_share"] = r["render_ms"]["render"] / (1e3 * r["warm_step_s"])
+            want = {2: UNET_ATTENTIONS * steps}
+            if (r["flash_attn_fwd_by_batch"] != want
+                    or any(r["launches"][k] for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                                                       "ray_cast"))):
+                raise AssertionError(f"path 9 {run}: kernel A by batch "
+                                     f"{r['flash_attn_fwd_by_batch']} (expected {want}), "
+                                     f"launches {r['launches']}")
+        log(f"volume_rest {run} ({r['system']}, {r['geometry']}, {r['renderer']}, "
+            f"{r['render_hw'][0]}^2 renders, eval {r['eval_hw'][0]}^2): launch_torch.py --train "
+            f"in {r['seconds']:.1f}s; kernel A by batch {r['flash_attn_fwd_by_batch']}, launches "
+            f"{r['launches']}; occupancy refreshes {r['occ_refreshes']}; steps "
+            f"{', '.join(f'{x:.4f}s' for x in step_s)} (warm {r['warm_step_s']:.4f}s), peak "
+            f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])} (run {r['peak_gb'] or 0:.2f}"
+            f" GB); test view {', '.join(f'{x:.3f}s' for x in r['test_s'])}; model.obj "
+            f"{r['obj_v']} v, {r['obj_f']} f; field tensors moved {r['geo_moved']} of "
+            f"{r['geo_tensors']}; losses {', '.join(f'{x:.6g}' for x in r['losses'])}"
+            + (f"; NeuS raw variance {r['inv_std_raw']:.6g}" if "inv_std_raw" in r else "")
+            + (f"; render forward and backward ms {r['render_ms']} ("
+               f"{100 * r['render_share']:.1f}% of the warm step)" if "render_ms" in r else "")
+            + (f"; guide grid card vs CPU {r['guide_vs_cpu']}" if "guide_vs_cpu" in r else "")
+            + (f"; {r['render_vs_cpu']['rays']} eval rays card vs CPU: comp_rgb "
+               f"{r['render_vs_cpu']['comp_rgb']:.2e}, opacity {r['render_vs_cpu']['opacity']:.2e}"
+               f", depth (relative) {r['render_vs_cpu']['depth']:.2e} ("
+               f"{100 * r['render_vs_cpu']['hit_share']:.1f}% of rays opaque)"
+               if "render_vs_cpu" in r else ""))
+        res["runs"][run] = r
+        del out, system, field
+        if cuda:
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_volume_rest() -> dict:
+    """Main path 9 on the card (``drive_volume_rest`` at SD2.1 width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_volume_rest")
+    res = drive_volume_rest(work)
+    res["counts"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                     for k in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                               "ray_cast")}
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2864,7 +3198,9 @@ def main() -> int:
     v_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None}
     d_counts = {"flash_attn_fwd": None, "flash_attn_bwd_dq": None, "flash_attn_bwd_dkv": None,
                 "ray_cast": None}
+    r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
+    rest_res = None
     if not args.kernels_only:
         main_res = timed("main", phase_main, args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -2883,6 +3219,8 @@ def main() -> int:
         v_counts = vol_res["counts"]
         dmtet_res = timed("dmtet", phase_dmtet, cast_res["clock"])
         d_counts = dmtet_res["counts"]
+        rest_res = timed("volume_rest", phase_volume_rest)
+        r_counts = rest_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -2911,7 +3249,11 @@ def main() -> int:
                               "dmtet": d_counts["flash_attn_fwd"],
                               "dmtet_by_run_and_batch": dmtet_res and {
                                   run: r["flash_attn_fwd_by_batch"]
-                                  for run, r in dmtet_res["runs"].items()}},
+                                  for run, r in dmtet_res["runs"].items()},
+                              "volume_rest": r_counts["flash_attn_fwd"],
+                              "volume_rest_by_run_and_batch": rest_res and {
+                                  run: r["flash_attn_fwd_by_batch"]
+                                  for run, r in rest_res["runs"].items()}},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
@@ -2936,7 +3278,8 @@ def main() -> int:
          "launches": cn_counts["flash_attn_bwd_dq"],
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dq"],
                               "volume": v_counts["flash_attn_bwd_dq"],
-                              "dmtet": d_counts["flash_attn_bwd_dq"]},
+                              "dmtet": d_counts["flash_attn_bwd_dq"],
+                              "volume_rest": r_counts["flash_attn_bwd_dq"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
                             for r in res["rows"]),
@@ -2951,7 +3294,8 @@ def main() -> int:
          "launches": cn_counts["flash_attn_bwd_dkv"],
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dkv"],
                               "volume": v_counts["flash_attn_bwd_dkv"],
-                              "dmtet": d_counts["flash_attn_bwd_dkv"]},
+                              "dmtet": d_counts["flash_attn_bwd_dkv"],
+                              "volume_rest": r_counts["flash_attn_bwd_dkv"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
@@ -2979,7 +3323,8 @@ def main() -> int:
                                   for run, r in tex_res["runs"].items()},
                               "dmtet": d_counts["ray_cast"],
                               "dmtet_by_run_and_stage": dmtet_res and {
-                                  run: r["ray_cast"] for run, r in dmtet_res["runs"].items()}},
+                                  run: r["ray_cast"] for run, r in dmtet_res["runs"].items()},
+                              "volume_rest": r_counts["ray_cast"]},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff",
                                         "pairs_morton", "bound_tested_ms", "bound_morton_ms")
@@ -3001,7 +3346,7 @@ def main() -> int:
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
-                   "volume": vol_res, "dmtet": dmtet_res,
+                   "volume": vol_res, "dmtet": dmtet_res, "volume_rest": rest_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,

@@ -9,6 +9,12 @@ Counterparts in ``dreammat_tpu/models/background.py``:
 - ``solid-color-background``: ``color`` tiled (or cut) to
   ``n_output_dims``; with ``learned`` the colour is the trainable
   ``color`` of a ``SolidColorField``, else the field holds nothing.
+- ``textured-background``: a trainable equirect texture [H, W, C]
+  (``TextureField``, N(0, 1) at init). A direction becomes its polar angle
+  u = atan2(|xy|, z) / pi and azimuth v = atan2(y, x) / 2pi + 1/2; the
+  texel coordinates are clamped in u and wrapped in v, the four texels
+  are read with ``index_select`` (so the backward is ``index_add_``) and
+  mixed bilinearly, then the colour activation.
 
 (The DreamMat renderer composites over white and has no background
 object.)
@@ -16,6 +22,7 @@ object.)
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -100,3 +107,49 @@ class SolidColorBackground(BaseObject):
         """Directions [..., 3] -> the colour [..., n_output_dims]."""
         color = field_.color if field_ is not None and hasattr(field_, "color") else self.color
         return color.expand(*dirs.shape[:-1], self.cfg.n_output_dims)
+
+
+class TextureField(nn.Module):
+    """The trainable texture [H, W, C]."""
+
+    def __init__(self, texture: torch.Tensor):
+        super().__init__()
+        self.texture = nn.Parameter(texture)
+
+
+@dreammat_tpu_torch.register("textured-background")
+class TexturedBackground(BaseObject):
+    @dataclass
+    class Config:
+        n_output_dims: int = 3
+        height: int = 64
+        width: int = 64
+        color_activation: str = "sigmoid"
+
+    cfg: Config
+
+    def configure(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.activation = get_activation(self.cfg.color_activation)
+
+    def init(self, generator: torch.Generator) -> TextureField:
+        shape = (self.cfg.height, self.cfg.width, self.cfg.n_output_dims)
+        return TextureField(torch.randn(shape, generator=generator, device=self.device))
+
+    def __call__(self, dirs: torch.Tensor, field_: TextureField) -> torch.Tensor:
+        """Directions [..., 3] -> colours [..., n_output_dims]."""
+        x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+        u = torch.atan2(torch.sqrt(x * x + y * y), z) / math.pi
+        v = torch.atan2(y, x) / (2.0 * math.pi) + 0.5
+        H, W, C = self.cfg.height, self.cfg.width, self.cfg.n_output_dims
+        uf = torch.clamp(u * H - 0.5, 0.0, H - 1.0)
+        vf = v * W - 0.5
+        u0, v0 = torch.floor(uf).long(), torch.floor(vf).long()
+        wu, wv = (uf - u0)[..., None], (vf - v0)[..., None]
+        u1, u0 = torch.clamp(u0 + 1, 0, H - 1), torch.clamp(u0, 0, H - 1)
+        v1, v0 = torch.remainder(v0 + 1, W), torch.remainder(v0, W)
+        flat = field_.texture.reshape(H * W, C)
+        at = lambda i, j: flat.index_select(0, (i * W + j).reshape(-1)).reshape(*i.shape, C)
+        out = (at(u0, v0) * (1 - wu) * (1 - wv) + at(u1, v0) * wu * (1 - wv)
+               + at(u0, v1) * (1 - wu) * wv + at(u1, v1) * wu * wv)
+        return self.activation(out)

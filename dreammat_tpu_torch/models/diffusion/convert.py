@@ -209,7 +209,9 @@ def load_model_dir(module: nn.Module, model_dir: Optional[str],
     return load_diffusers_weights(module, load_state_dict_file(ckpt), model_type, source=ckpt)
 
 
-_FIELD_MLPS = ("mlp", "density_mlp", "feature_mlp", "normal_mlp")
+_FIELD_MLPS = ("mlp", "density_mlp", "feature_mlp", "normal_mlp", "sdf_mlp")
+_FIELD_TENSORS = ("sdf", "deformation", "table", "color", "grid", "density_scale", "normal_grid",
+                  "texture")
 
 
 def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -217,12 +219,16 @@ def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     material field ``{"table": [L,T,F], "mlp": {"w": [[in,out]...], "b":
     [[out]...]}}`` (``MaterialField``), the implicit volume ``{"table",
     "density_mlp", "feature_mlp", "normal_mlp"}`` (``VolumeField``, MLPs as
-    present), the DMTet grid ``{"sdf", "deformation", "table",
-    "feature_mlp"}`` (``DMTetField``, as present), the neural environment
-    map ``{"mlp"}`` (``BackgroundField``) or the learned solid colour
-    ``{"color"}`` (``SolidColorField``)."""
+    present), the volume grid ``{"grid", "density_scale", "normal_grid"}``
+    (``VolumeGridField``), the implicit SDF ``{"table", "sdf_mlp",
+    "feature_mlp"}`` (``SDFField``), the DMTet grid ``{"sdf", "deformation",
+    "table", "feature_mlp"}`` (``DMTetField``, as present), the neural
+    environment map ``{"mlp"}`` (``BackgroundField``), the textured
+    background ``{"texture"}`` (``TextureField``), the learned solid colour
+    ``{"color"}`` (``SolidColorField``) or the neural-radiance material's
+    MLP as ``{"mlp"}`` (``RadianceField``)."""
     sd = {}
-    for name in ("sdf", "deformation", "table", "color"):
+    for name in _FIELD_TENSORS:
         if name in params:
             sd[name] = torch.from_numpy(np.array(params[name], dtype=np.float32))
     for name in _FIELD_MLPS:
@@ -235,14 +241,18 @@ def geometry_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def volume_scene_from_numpy(geo: Mapping, bg: Mapping, occ=None) -> Dict[str, torch.Tensor]:
-    """The JAX volume systems' ``state["geo"]``, ``state["bg"]`` and
-    ``state["render"]["occ"]`` (numpy; none under the mesh rasterizer) ->
-    a ``VolumeScene`` state dict."""
+def volume_scene_from_numpy(geo: Mapping, bg: Mapping, occ=None,
+                            var: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The JAX volume systems' ``state["geo"]``, ``state["bg"]``,
+    ``state["render"]["occ"]`` (numpy; none under the mesh rasterizer) and,
+    for TextMesh, NeuS's ``state["var"]`` ``{"_inv_std"}`` -> a
+    ``VolumeScene`` (``SDFScene``) state dict."""
     sd = {"geo." + k: v for k, v in geometry_params_from_numpy(geo).items()}
     sd.update({"bg." + k: v for k, v in geometry_params_from_numpy(bg).items()})
     if occ is not None:
         sd["occ"] = torch.from_numpy(np.array(occ, dtype=np.float32))
+    if var is not None:
+        sd["var._inv_std"] = torch.from_numpy(np.array(var["_inv_std"], dtype=np.float32))
     return sd
 
 

@@ -5,7 +5,9 @@ small MLP maps surface points (``n_input_dims: 3``, normalized over the
 ``radius`` box) or texture coordinates (``n_input_dims: 2``, the UV-space
 field, over the unit square) to ``n_feature_dims`` raw material features
 (albedo 3, metallic 1, roughness^2 1). The mesh is frozen; the only
-trainable state is the ``MaterialField`` module.
+trainable state is the ``MaterialField`` module. ``custom-mesh`` (a fixed
+user mesh with a trainable feature field) is the same geometry under a
+second name, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -110,3 +112,8 @@ class DreamMatMesh(BaseObject):
         field) -> raw features [..., n_feature_dims]."""
         x = (points - self.bbox[0]) / (self.bbox[1] - self.bbox[0])
         return field_(torch.clamp(x, 0.0, 1.0))
+
+
+@dreammat_tpu_torch.register("custom-mesh")
+class CustomMesh(DreamMatMesh):
+    """``dreammat-mesh`` under the name ``custom-mesh``."""

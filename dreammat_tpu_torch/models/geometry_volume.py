@@ -13,6 +13,13 @@ with respect to the point, through autograd; differentiable in the field
 when gradients are on). The trainable state is a ``VolumeField`` module.
 ``isosurface_mesh`` extracts the ``isosurface_threshold`` level set on a
 ``isosurface_resolution``^3 grid by marching tetrahedra (host numpy).
+
+``volume-grid`` (``VolumeGrid``) is the same field on a dense trainable
+grid [G1,G2,G3, 1 + Nf] with no MLP (``VolumeGridField``): the raw
+density is channel 0 of ``trilinear_sample`` times ``exp(density_scale)``
+(a trainable scalar), the features the other channels; the ``blob`` bias
+is the linear falloff of ``blob_magic3d``; normals ``finite_difference``,
+``finite_difference_laplacian`` or ``pred`` (a second grid [G1,G2,G3,3]).
 """
 
 from __future__ import annotations
@@ -163,29 +170,35 @@ class ImplicitVolume(BaseObject):
             out["features"] = mlp_lib.apply_mlp(field_.feature_mlp, enc).reshape(
                 *lead, cfg.n_feature_dims)
         if output_normal:
-            eps = cfg.finite_difference_normal_eps
-            if cfg.normal_type == "finite_difference_laplacian":
-                offs = torch.tensor([[eps, 0, 0], [-eps, 0, 0], [0, eps, 0], [0, -eps, 0],
-                                     [0, 0, eps], [0, 0, -eps]], device=points.device)
-                po = torch.clamp(points[..., None, :] + offs, -cfg.radius, cfg.radius)
-                do = self.forward_density(field_, po)  # [..., 6, 1]
-                normal = -0.5 * (do[..., 0::2, 0] - do[..., 1::2, 0]) / eps
-            elif cfg.normal_type == "finite_difference":
-                offs = torch.tensor([[eps, 0, 0], [0, eps, 0], [0, 0, eps]],
-                                    device=points.device)
-                po = torch.clamp(points[..., None, :] + offs, -cfg.radius, cfg.radius)
-                do = self.forward_density(field_, po)  # [..., 3, 1]
-                normal = -(do[..., :, 0] - density) / eps
-            elif cfg.normal_type == "pred":
+            if cfg.normal_type == "pred":
                 normal = mlp_lib.apply_mlp(field_.normal_mlp, enc).reshape(*lead, 3)
             elif cfg.normal_type == "analytic":
                 normal = self._analytic_normal(field_, points)
             else:
-                raise ValueError(f"unknown normal type {cfg.normal_type}")
+                normal = self._fd_normal(field_, points, density)
             normal = safe_normalize(normal)
             out["normal"] = normal
             out["shading_normal"] = normal
         return out
+
+    def _fd_normal(self, field_, points: torch.Tensor, density: torch.Tensor) -> torch.Tensor:
+        """Minus the density's finite-difference gradient: forward differences
+        on three offsets (``finite_difference``) or central on six
+        (``finite_difference_laplacian``), the offset points clamped to the box."""
+        cfg = self.cfg
+        eps = cfg.finite_difference_normal_eps
+        if cfg.normal_type == "finite_difference_laplacian":
+            offs = torch.tensor([[eps, 0, 0], [-eps, 0, 0], [0, eps, 0], [0, -eps, 0],
+                                 [0, 0, eps], [0, 0, -eps]], device=points.device)
+            po = torch.clamp(points[..., None, :] + offs, -cfg.radius, cfg.radius)
+            do = self.forward_density(field_, po)  # [..., 6, 1]
+            return -0.5 * (do[..., 0::2, 0] - do[..., 1::2, 0]) / eps
+        if cfg.normal_type == "finite_difference":
+            offs = torch.tensor([[eps, 0, 0], [0, eps, 0], [0, 0, eps]], device=points.device)
+            po = torch.clamp(points[..., None, :] + offs, -cfg.radius, cfg.radius)
+            do = self.forward_density(field_, po)  # [..., 3, 1]
+            return -(do[..., :, 0] - density) / eps
+        raise ValueError(f"unknown normal type {cfg.normal_type}")
 
     # -- isosurface (export) ------------------------------------------------
     @torch.no_grad()
@@ -247,3 +260,82 @@ def trilinear_sample(grid: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
     c0 = c00 * (1 - wy) + c10 * wy
     c1 = c01 * (1 - wy) + c11 * wy
     return c0 * (1 - wz) + c1 * wz
+
+
+class VolumeGridField(nn.Module):
+    """grid [G1,G2,G3, 1+Nf] (zeros at init), the scalar ``density_scale``
+    and, for ``pred`` normals, ``normal_grid`` [G1,G2,G3,3]."""
+
+    def __init__(self, grid_size, n_feature_dims: int, pred_normal: bool):
+        super().__init__()
+        self.grid = nn.Parameter(torch.zeros(*grid_size, 1 + n_feature_dims))
+        self.density_scale = nn.Parameter(torch.zeros(()))
+        if pred_normal:
+            self.normal_grid = nn.Parameter(torch.zeros(*grid_size, 3))
+
+
+@dreammat_tpu_torch.register("volume-grid")
+class VolumeGrid(ImplicitVolume):
+    @dataclass
+    class Config(ImplicitVolume.Config):
+        grid_size: Any = (100, 100, 100)
+        density_bias: Any = "blob"
+        density_blob_scale: float = 5.0
+        density_blob_std: float = 0.5
+        isosurface_threshold: float = 1.0
+
+    cfg: Config
+
+    def configure(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        if self.cfg.normal_type not in ("finite_difference", "finite_difference_laplacian",
+                                        "pred"):
+            raise ValueError(f"unknown normal type {self.cfg.normal_type}")
+        r = self.cfg.radius
+        self.bbox = torch.tensor([[-r, -r, -r], [r, r, r]], dtype=torch.float32,
+                                 device=self.device)
+        self.grid_size = tuple(int(g) for g in self.cfg.grid_size)
+        self.feature_dims = self.cfg.n_feature_dims if self.cfg.n_feature_dims > 0 else None
+        self.mesh = None
+
+    def init(self, generator: torch.Generator) -> VolumeGridField:
+        return VolumeGridField(self.grid_size, self.cfg.n_feature_dims,
+                               self.cfg.normal_type == "pred").to(self.device)
+
+    def _density_bias(self, points: torch.Tensor):
+        cfg = self.cfg
+        if cfg.density_bias == "blob":
+            return cfg.density_blob_scale * (
+                1.0 - torch.sqrt(torch.sum(points ** 2, dim=-1, keepdim=True) + 1e-12)
+                / cfg.density_blob_std)
+        return super()._density_bias(points)
+
+    def _x01(self, points: torch.Tensor) -> torch.Tensor:
+        return torch.clamp((points - self.bbox[0]) / (self.bbox[1] - self.bbox[0]), 0.0, 1.0)
+
+    def forward_density(self, field_: VolumeGridField, points: torch.Tensor) -> torch.Tensor:
+        raw = trilinear_sample(field_.grid[..., 0:1], self._x01(points))
+        return self._activate_density(points, raw * torch.exp(field_.density_scale))
+
+    def apply(self, field_: VolumeGridField, points: torch.Tensor,
+              output_normal: bool = False) -> Dict[str, torch.Tensor]:
+        out_grid = trilinear_sample(field_.grid, self._x01(points))
+        density = self._activate_density(points,
+                                          out_grid[..., 0:1] * torch.exp(field_.density_scale))
+        out = {"density": density}
+        if self.feature_dims is not None:
+            out["features"] = out_grid[..., 1:]
+        if output_normal:
+            if self.cfg.normal_type == "pred":
+                normal = trilinear_sample(field_.normal_grid, self._x01(points))
+            else:
+                normal = self._fd_normal(field_, points, density)
+            normal = safe_normalize(normal)
+            out["normal"] = normal
+            out["shading_normal"] = normal
+        return out
+
+    def export(self, field_: VolumeGridField, points: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.feature_dims is None:
+            return {}
+        return {"features": trilinear_sample(field_.grid, self._x01(points))[..., 1:]}

@@ -23,14 +23,21 @@ ray takes all ``num_samples_per_ray`` samples (no ragged sampler).
   ``density``; with normals ``normal`` and ``comp_normal``, and
   ``normal_perturb`` from ``normal_perturb`` draws), and ``render_image``
   renders an [H,W] view in chunks of ``eval_chunk_rays`` rays.
+
+``neus-volume-renderer`` (NeuS and VolSDF alphas over an ``implicit-sdf``,
+on the same sampling stack) and ``patch-renderer`` (a strided global pass
+and one full-resolution patch over a base renderer) follow the NeRF
+renderer; their classes say how.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
 import dreammat_tpu_torch
 from dreammat_tpu_torch.utils.base import BaseObject
@@ -179,18 +186,19 @@ class NeRFVolumeRenderer(BaseObject):
         return T * alpha
 
     # -- render -------------------------------------------------------------
-    def render_rays(self, geo_field, bg_field, occ: Optional[torch.Tensor], rays_o, rays_d,
-                    light_positions, draws=None, step: int = 0,
-                    is_train: bool = False) -> Dict[str, torch.Tensor]:
-        """Rays [N,3] (origins, directions, light positions) -> composited
-        maps [N,C] and per-sample [N,S,...] outputs."""
+    def _coarse_sigma(self, geo_field, pts: torch.Tensor) -> torch.Tensor:
+        """The importance estimator's coarse density, under no gradient."""
+        with torch.no_grad():
+            return self.geometry.forward_density(geo_field, pts)[..., 0]
+
+    def _samples(self, geo_field, occ, rays_o, rays_d, draws, randomized: bool, **kw):
+        """(t0, t1, t [N,S], occ_bin or None) of the configured estimator
+        (``kw`` go to ``_coarse_sigma``)."""
         cfg = self.cfg
         S = cfg.num_samples_per_ray
-        randomized = bool(cfg.randomized and is_train)
         t0, t1 = ray_aabb(rays_o, rays_d, self.bbox_lo, self.bbox_hi)
         t0 = torch.clamp(t0, min=cfg.near_plane)
         t1 = torch.clamp(torch.maximum(t1, t0), max=cfg.far_plane)
-
         occ_bin = None
         if cfg.estimator == "occgrid":
             occ_bin = self._occ_binary(occ)
@@ -200,14 +208,36 @@ class NeRFVolumeRenderer(BaseObject):
         elif cfg.estimator in ("importance", "proposal"):
             Sc = cfg.num_samples_per_ray_importance
             tc = self._stratified(draws, "ray_coarse", t0, t1, Sc, randomized)
-            with torch.no_grad():
-                pc = rays_o[:, None, :] + rays_d[:, None, :] * tc[..., None]
-                sigma_c = self.geometry.forward_density(geo_field, pc)[..., 0]
-                wc = self._weights(sigma_c, ((t1 - t0) / Sc)[:, None].expand_as(tc))
+            sigma_c = self._coarse_sigma(
+                geo_field, rays_o[:, None, :] + rays_d[:, None, :] * tc[..., None], **kw)
+            wc = self._weights(sigma_c, ((t1 - t0) / Sc)[:, None].expand_as(tc))
             t = self._importance_resample(draws, tc, wc, t0, t1, S)
         else:
             raise ValueError(f"unknown estimator {cfg.estimator}")
+        return t0, t1, t, occ_bin
 
+    @staticmethod
+    def _deltas(t: torch.Tensor) -> torch.Tensor:
+        dt = torch.diff(t, dim=1)
+        return torch.clamp(torch.cat([dt, dt[:, -1:]], dim=1), min=1e-6)
+
+    def _composite(self, w, t, rgb_s, rays_d, bg_field) -> Dict[str, torch.Tensor]:
+        opacity = w.sum(dim=1, keepdim=True)
+        depth = (w * t).sum(dim=1, keepdim=True)
+        comp_rgb_fg = (w[..., None] * rgb_s).sum(dim=1)
+        comp_rgb_bg = self.background(rays_d, bg_field)
+        return {"comp_rgb": comp_rgb_fg + comp_rgb_bg * (1.0 - opacity),
+                "comp_rgb_fg": comp_rgb_fg, "comp_rgb_bg": comp_rgb_bg, "opacity": opacity,
+                "depth": depth, "z_variance": (w * (t - depth) ** 2).sum(dim=1, keepdim=True)}
+
+    def render_rays(self, geo_field, bg_field, occ: Optional[torch.Tensor], rays_o, rays_d,
+                    light_positions, draws=None, step: int = 0,
+                    is_train: bool = False) -> Dict[str, torch.Tensor]:
+        """Rays [N,3] (origins, directions, light positions) -> composited
+        maps [N,C] and per-sample [N,S,...] outputs."""
+        cfg = self.cfg
+        t0, t1, t, occ_bin = self._samples(geo_field, occ, rays_o, rays_d, draws,
+                                           bool(cfg.randomized and is_train))
         pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]  # [N,S,3]
         geo_out = self.geometry.apply(geo_field, pts,
                                       output_normal=getattr(self.material, "requires_normal",
@@ -216,37 +246,19 @@ class NeRFVolumeRenderer(BaseObject):
         if occ_bin is not None and cfg.prune_alpha_threshold:
             sigma = sigma * self._occ_at(occ_bin, pts)
         sigma = sigma * (t1 > t0)[:, None]
-        dt = torch.diff(t, dim=1)
-        delta = torch.clamp(torch.cat([dt, dt[:, -1:]], dim=1), min=1e-6)
-        w = self._weights(sigma, delta)
+        w = self._weights(sigma, self._deltas(t))
 
         t_dirs = rays_d[:, None, :].expand_as(pts)
         rgb_s = self.material(geo_out.get("features"), positions=pts,
                               shading_normal=geo_out.get("shading_normal"),
                               light_positions=light_positions[:, None, :], viewdirs=t_dirs,
                               draws=draws, step=step, is_train=is_train)
-        opacity = w.sum(dim=1, keepdim=True)
-        depth = (w * t).sum(dim=1, keepdim=True)
-        comp_rgb_fg = (w[..., None] * rgb_s).sum(dim=1)
-        z_var = (w * (t - depth) ** 2).sum(dim=1, keepdim=True)
-        comp_rgb_bg = self.background(rays_d, bg_field)
-        out = {
-            "comp_rgb": comp_rgb_fg + comp_rgb_bg * (1.0 - opacity),
-            "comp_rgb_fg": comp_rgb_fg,
-            "comp_rgb_bg": comp_rgb_bg,
-            "opacity": opacity,
-            "depth": depth,
-            "z_variance": z_var,
-            "weights": w,
-            "t_points": t,
-            "t_dirs": t_dirs,
-            "points": pts,
-            "density": sigma,
-        }
+        out = {**self._composite(w, t, rgb_s, rays_d, bg_field), "weights": w, "t_points": t,
+               "t_dirs": t_dirs, "points": pts, "density": sigma}
         if "normal" in geo_out:
             out["normal"] = geo_out["normal"]
             comp_normal = safe_normalize((w[..., None] * geo_out["normal"]).sum(dim=1))
-            out["comp_normal"] = (comp_normal + 1.0) / 2.0 * opacity
+            out["comp_normal"] = (comp_normal + 1.0) / 2.0 * out["opacity"]
             if is_train and cfg.return_normal_perturb:
                 jitter = _draw(draws, "normal", "normal_perturb", tuple(pts.shape), pts.device)
                 out["normal_perturb"] = self.geometry.apply(
@@ -255,10 +267,10 @@ class NeRFVolumeRenderer(BaseObject):
 
     @torch.no_grad()
     def render_image(self, geo_field, bg_field, occ, rays_o, rays_d, light_position, draws=None,
-                     step: int = 0) -> Dict[str, torch.Tensor]:
+                     step: int = 0, **kw) -> Dict[str, torch.Tensor]:
         """Rays [H,W,3] and one light position [3] -> ``comp_rgb``,
         ``opacity``, ``depth`` (and ``comp_normal``) [H,W,C], rendered in
-        chunks of ``eval_chunk_rays`` rays."""
+        chunks of ``eval_chunk_rays`` rays (``kw``: NeuS's ``var``)."""
         H, W = rays_o.shape[:2]
         ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
         lp = light_position.reshape(1, 3).expand_as(ro)
@@ -267,8 +279,239 @@ class NeRFVolumeRenderer(BaseObject):
         outs = {}
         for i in range(0, ro.shape[0], C):
             o = self.render_rays(geo_field, bg_field, occ, ro[i:i + C], rd[i:i + C],
-                                 lp[i:i + C], draws, step=step, is_train=False)
+                                 lp[i:i + C], draws, step=step, is_train=False, **kw)
             for key in keys:
                 if key in o:
                     outs.setdefault(key, []).append(o[key])
         return {k: torch.cat(v).reshape(H, W, -1) for k, v in outs.items()}
+
+
+def volsdf_density(sdf: torch.Tensor, inv_std) -> torch.Tensor:
+    """VolSDF's Laplace-CDF density of the SDF, inv_std clamped to [0, 80]."""
+    inv_std = torch.clamp(torch.as_tensor(inv_std, dtype=sdf.dtype, device=sdf.device), 0.0, 80.0)
+    return inv_std * (0.5 + 0.5 * torch.sign(sdf) * torch.expm1(-sdf.abs() * inv_std))
+
+
+class LearnedVariance(nn.Module):
+    """NeuS's trainable raw variance ``_inv_std`` (a scalar)."""
+
+    def __init__(self, init: float):
+        super().__init__()
+        self._inv_std = nn.Parameter(torch.tensor(float(init)))
+
+
+@dreammat_tpu_torch.register("neus-volume-renderer")
+class NeuSVolumeRenderer(NeRFVolumeRenderer):
+    """NeuS and VolSDF volume rendering of an ``implicit-sdf`` geometry.
+
+    Counterpart of ``neus-volume-renderer`` in
+    ``dreammat_tpu/models/volume_renderer.py`` on the NeRF renderer's
+    sampling stack; only the alphas differ. inv_std = clamp(exp(10 raw),
+    1e-6, 1e6) with raw the ``LearnedVariance`` (``init_variance``; the
+    systems hand it in as ``var``). NeuS: the SDF at the interval's ends is
+    estimated from the annealed cosine (ratio = step /
+    ``cos_anneal_end_steps``, 1 without annealing), iter_cos = -(relu(-cos/2
+    + 1/2)(1 - ratio) + relu(-cos) ratio), and alpha = clamp((Phi(prev) -
+    Phi(next) + 1e-5) / (Phi(prev) + 1e-5), 0, 1) with Phi the sigmoid of
+    inv_std times the SDF. ``use_volsdf``: alpha = 1 - exp(-volsdf_density
+    delta). Weights w_i = alpha_i prod_{j<i} (1 - alpha_j + 1e-7). The
+    occupancy refresh takes ``volsdf_density(sdf, 20)``; the importance
+    estimator's coarse pass the VolSDF density of the SDF (under no
+    gradient) at the learned inv_std, so that, as in the JAX package, the
+    variance's gradient also flows through the resampled positions.
+    ``render_rays`` returns the NeRF renderer's keys (not ``density``) and
+    ``sdf_grad`` and ``inv_std``."""
+
+    @dataclass
+    class Config(NeRFVolumeRenderer.Config):
+        learned_variance_init: float = 0.3
+        cos_anneal_end_steps: int = 0
+        use_volsdf: bool = False
+
+    cfg: Config
+
+    def init_variance(self) -> LearnedVariance:
+        return LearnedVariance(self.cfg.learned_variance_init).to(self.device)
+
+    @staticmethod
+    def inv_std(var: LearnedVariance) -> torch.Tensor:
+        return torch.clamp(torch.exp(var._inv_std * 10.0), 1e-6, 1e6)
+
+    def _occ_density(self, geo_field, pts: torch.Tensor) -> torch.Tensor:
+        return volsdf_density(self.geometry.forward_sdf(geo_field, pts)[..., 0], 20.0)
+
+    def _coarse_sigma(self, geo_field, pts: torch.Tensor, var=None) -> torch.Tensor:
+        """The VolSDF density of the SDF (under no gradient) at the learned
+        inv_std, whose gradient flows on."""
+        with torch.no_grad():
+            sdf = self.geometry.forward_sdf(geo_field, pts)[..., 0]
+        return volsdf_density(sdf, self.inv_std(var))
+
+    def _alphas(self, sdf, normal, dirs, delta, var, step: int) -> torch.Tensor:
+        inv_std = self.inv_std(var)
+        if self.cfg.use_volsdf:
+            alpha = 1.0 - torch.exp(-volsdf_density(sdf, inv_std) * delta)
+        else:
+            true_cos = torch.sum(normal * dirs, dim=-1)
+            end = self.cfg.cos_anneal_end_steps
+            ratio = min(max(float(step) / end, 0.0), 1.0) if end > 0 else 1.0
+            iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - ratio)
+                         + torch.relu(-true_cos) * ratio)
+            prev_cdf = torch.sigmoid((sdf - iter_cos * delta * 0.5) * inv_std)
+            next_cdf = torch.sigmoid((sdf + iter_cos * delta * 0.5) * inv_std)
+            alpha = torch.clamp((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+        T = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1] + 1e-7],
+                                    dim=1), dim=1)
+        return T * alpha
+
+    def render_rays(self, geo_field, bg_field, occ: Optional[torch.Tensor], rays_o, rays_d,
+                    light_positions, draws=None, step: int = 0, is_train: bool = False,
+                    var: Optional[LearnedVariance] = None) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        if var is None:
+            var = self.init_variance()
+        t0, t1, t, occ_bin = self._samples(geo_field, occ, rays_o, rays_d, draws,
+                                           bool(cfg.randomized and is_train), var=var)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+        geo_out = self.geometry.apply(geo_field, pts, output_normal=True)
+        normal = geo_out["normal"]
+        t_dirs = rays_d[:, None, :].expand_as(pts)
+        w = self._alphas(geo_out["sdf"][..., 0], normal, t_dirs, self._deltas(t), var, step)
+        if occ_bin is not None and cfg.prune_alpha_threshold:
+            w = w * self._occ_at(occ_bin, pts)
+        w = w * (t1 > t0)[:, None]
+        rgb_s = self.material(geo_out.get("features"), positions=pts, shading_normal=normal,
+                              light_positions=light_positions[:, None, :], viewdirs=t_dirs,
+                              draws=draws, step=step, is_train=is_train)
+        out = self._composite(w, t, rgb_s, rays_d, bg_field)
+        comp_normal = safe_normalize((w[..., None] * normal).sum(dim=1))
+        return {**out, "weights": w, "t_points": t, "t_dirs": t_dirs, "points": pts,
+                "normal": normal, "sdf_grad": geo_out["sdf_grad"],
+                "comp_normal": (comp_normal + 1.0) / 2.0 * out["opacity"],
+                "inv_std": self.inv_std(var)}
+
+
+class PrefixedDraws:
+    """A draws object whose names carry ``prefix`` (the patch renderer's two
+    passes draw the same names)."""
+
+    def __init__(self, draws, prefix: str):
+        self.draws, self.prefix = draws, prefix
+
+    def uniform(self, name, shape):
+        return self.draws.uniform(self.prefix + name, shape)
+
+    def normal(self, name, shape):
+        return self.draws.normal(self.prefix + name, shape)
+
+    def integers(self, name, low, high, shape):
+        return self.draws.integers(self.prefix + name, low, high, shape)
+
+
+# the keys of a render that are images ([N, C] per ray): upsampled from the
+# global pass and pasted over by the patch
+PATCH_IMAGE_KEYS = ("comp_rgb", "comp_rgb_fg", "comp_rgb_bg", "opacity", "depth", "comp_normal",
+                    "z_variance")
+
+
+@dreammat_tpu_torch.register("patch-renderer")
+class PatchRenderer(BaseObject):
+    """Full-resolution training at bounded memory: a strided global pass and
+    one full-resolution patch.
+
+    Counterpart of ``patch-renderer`` in
+    ``dreammat_tpu/models/volume_renderer.py``. A training render of an
+    H x W ray grid renders every ``global_downsample``-th ray from
+    ``ds // 2`` on (draws under ``global/``) and a ``patch_size`` square at
+    a random offset (``patch/``; the offset ``patch_y``, ``patch_x`` are
+    integer draws in [0, H - PS]). The image keys (``PATCH_IMAGE_KEYS``) of
+    the global pass are upsampled to H x W (bilinear, half-pixel centres,
+    as ``jax.image.resize``; detached with ``global_detach``) and the
+    patch's are pasted over them; every other output (the per-sample ones)
+    is the global pass's. Evaluation, the occupancy grid and its refresh go
+    to the base renderer."""
+
+    @dataclass
+    class Config:
+        patch_size: int = 128
+        base_renderer_type: str = "nerf-volume-renderer"
+        base_renderer: Any = None
+        global_detach: bool = False
+        global_downsample: int = 4
+
+    cfg: Config
+    is_volume: bool = True
+
+    def __init__(self, cfg, geometry, material, background, device="cuda") -> None:
+        self.geometry = geometry
+        self.material = material
+        self.background = background
+        super().__init__(cfg, device=device)
+
+    def configure(self, device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.base = dreammat_tpu_torch.find(self.cfg.base_renderer_type)(
+            self.cfg.base_renderer or {}, self.geometry, self.material, self.background,
+            device=self.device)
+        self.mesh = None
+        # the systems read the occupancy knobs off the renderer's config
+        for k in ("estimator", "grid_prune", "grid_update_every"):
+            setattr(self.cfg, k, getattr(self.base.cfg, k, None))
+
+    def init_state(self):
+        return self.base.init_state()
+
+    def update_occ(self, geo_field, occ, draws):
+        return self.base.update_occ(geo_field, occ, draws)
+
+    def render_image(self, *a, **kw):
+        return self.base.render_image(*a, **kw)
+
+    def render_rays(self, geo_field, bg_field, occ, rays_o, rays_d, light_positions, draws=None,
+                    step: int = 0, is_train: bool = False, **kw) -> Dict[str, torch.Tensor]:
+        if not is_train:
+            return self.base.render_rays(geo_field, bg_field, occ, rays_o, rays_d,
+                                         light_positions, draws, step=step, is_train=False, **kw)
+        N = rays_o.shape[0]
+        H = W = int(round(N ** 0.5))
+        if H * W != N:
+            raise ValueError(f"patch-renderer needs a square ray grid, got {N} rays")
+        ds = self.cfg.global_downsample
+        PS = min(self.cfg.patch_size, H, W)
+        grids = [x.reshape(H, W, 3) for x in (rays_o, rays_d, light_positions)]
+        sub = [x[ds // 2::ds, ds // 2::ds] for x in grids]
+        out_g = self.base.render_rays(geo_field, bg_field, occ,
+                                      *(x.reshape(-1, 3) for x in sub),
+                                      PrefixedDraws(draws, "global/"), step=step, is_train=True,
+                                      **kw)
+        py = int(draws.integers("patch_y", 0, H - PS + 1, ()))
+        px = int(draws.integers("patch_x", 0, W - PS + 1, ()))
+        out_p = self.base.render_rays(geo_field, bg_field, occ,
+                                      *(x[py:py + PS, px:px + PS].reshape(-1, 3) for x in grids),
+                                      PrefixedDraws(draws, "patch/"), step=step, is_train=True,
+                                      **kw)
+        return self.merge(out_g, out_p, H, W, py, px)
+
+    def merge(self, out_g: Dict[str, torch.Tensor], out_p: Dict[str, torch.Tensor], H: int,
+              W: int, py: int, px: int) -> Dict[str, torch.Tensor]:
+        """The global pass's outputs with its image keys upsampled to H x W
+        and the patch's pasted over them at (py, px)."""
+        PS = min(self.cfg.patch_size, H, W)
+        ds = self.cfg.global_downsample
+        Hg, Wg = len(range(ds // 2, H, ds)), len(range(ds // 2, W, ds))
+        out = {}
+        for key, vg in out_g.items():
+            vp = out_p.get(key)
+            if (key in PATCH_IMAGE_KEYS and vp is not None and vg.dim() == 2
+                    and vg.shape[0] == Hg * Wg and vp.shape[0] == PS * PS):
+                C = vg.shape[1]
+                full = F.interpolate(vg.reshape(1, Hg, Wg, C).permute(0, 3, 1, 2), size=(H, W),
+                                     mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+                if self.cfg.global_detach:
+                    full = full.detach()
+                full = full.contiguous()
+                full[py:py + PS, px:px + PS] = vp.reshape(PS, PS, C)
+                out[key] = full.reshape(H * W, C)
+            else:
+                out[key] = vg
+        return out

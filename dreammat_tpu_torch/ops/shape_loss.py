@@ -1,4 +1,4 @@
-"""Exact signed distance to a closed triangle mesh, chunked over points.
+"""Exact signed distance to a closed triangle mesh, and Latent-NeRF's sketch-shape loss.
 
 Counterpart of ``winding_number``, ``point_mesh_sq_distance`` and
 ``mesh_signed_distance`` in ``dreammat_tpu/ops/shape_loss.py``: the sign
@@ -6,14 +6,28 @@ comes from the generalized winding number (van Oosterom-Strackee solid
 angles summed over the triangles), the magnitude from the exact
 point-triangle distance (Ericson's barycentric clamp), each over the
 [chunk, T] product of points and triangles. The DMTet geometry's
-``shape_init: mesh:<path>`` bakes it once at the lattice vertices.
-(``build_shape_grid`` and the shape loss of Latent-NeRF are not ported.)
+``shape_init: mesh:<path>`` bakes it once at the lattice vertices, the
+implicit SDF's fits its field to it.
+
+The sketch-shape guide (``ShapeGrid``, ``build_shape_grid``, ``shape_loss``):
+the guide mesh is centred at its vertex mean, scaled so its farthest vertex
+lies at ``mesh_scale`` and turned by the fixed ``_MATRIX_ROT``; its winding
+number and the weight 1 - exp(-d^2 / 2 p^2) (d the distance to the surface,
+p ``proximal_surface``) are baked once on a G^3 lattice over
+[-bound, bound]^3, on the device in chunks. The loss samples both grids at
+the ray samples with ``_trilinear``, which is corner-aligned with clamped
+edges (u = (p / 2b + 1/2)(G - 1)), unlike the cell-centred
+``trilinear_sample`` of the volume grid, and sums the weighted cross
+entropy between the NeRF occupancy 1 - exp(-0.2 sigma) and the inside
+indicator (winding > 1/2, clamped to [1e-4, 1 - 1e-4]).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -91,3 +105,80 @@ def mesh_signed_distance(points: torch.Tensor, tri_verts: torch.Tensor,
     w = winding_number(points, tri_verts, chunk=chunk)
     sign = torch.where(w > 0.5, 1.0, -1.0)
     return (sign if inside_positive else -sign) * d
+
+
+# the fixed rotation the guide mesh takes after its normalization
+_MATRIX_ROT = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32) @ \
+    np.array([[0, 0, 1], [0, 1, 0], [-1, 0, 0]], np.float32)
+
+
+class ShapeGrid(NamedTuple):
+    winding: torch.Tensor  # [G,G,G] generalized winding number
+    weight: torch.Tensor   # [G,G,G] the CE weight 1 - gaussian(distance)
+    bound: float           # the lattice spans [-bound, bound]^3
+
+
+def guide_triangles(verts: np.ndarray, faces: np.ndarray, mesh_scale: float = 0.7) -> np.ndarray:
+    """The guide mesh's triangles [F,3,3], normalized and turned."""
+    v = np.asarray(verts, np.float32)
+    v = v - v.mean(axis=0)
+    v = v / max(float(np.max(np.linalg.norm(v, axis=1))), 1e-12) * mesh_scale
+    return np.ascontiguousarray((v @ _MATRIX_ROT.T)[np.asarray(faces, np.int64)])
+
+
+def build_shape_grid(verts: np.ndarray, faces: np.ndarray, resolution: int = 64,
+                     mesh_scale: float = 0.7, proximal_surface: float = 0.3, bound: float = 1.0,
+                     device="cuda", chunk: int = 1024) -> ShapeGrid:
+    """The guide mesh (raw vertices [V,3], faces [F,3]) baked on a
+    ``resolution``^3 lattice on ``device``, ``chunk`` lattice points at a time."""
+    tri = torch.from_numpy(guide_triangles(verts, faces, mesh_scale)).to(device)
+    g = np.linspace(-bound, bound, resolution, dtype=np.float32)
+    pts = torch.from_numpy(np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+                           ).to(device)
+    shape = (resolution,) * 3
+    wind = winding_number(pts, tri, chunk=chunk).reshape(shape)
+    if proximal_surface > 0:
+        d2 = point_mesh_sq_distance(pts, tri, chunk=chunk)
+        weight = (1.0 - torch.exp(-d2 / (2.0 * proximal_surface ** 2))).reshape(shape)
+    else:
+        weight = torch.ones(shape, device=pts.device)
+    return ShapeGrid(wind, weight, float(bound))
+
+
+def _trilinear(grid: torch.Tensor, pts: torch.Tensor, bound: float) -> torch.Tensor:
+    """[G,G,G] sampled at points [..., 3] in [-bound, bound]^3, corner-aligned,
+    edges clamped."""
+    G = grid.shape[0]
+    u = torch.clamp((pts / (2.0 * bound) + 0.5) * (G - 1), 0.0, G - 1 - 1e-6)
+    i0 = torch.floor(u).long()
+    f = u - i0
+    i1 = torch.clamp(i0 + 1, max=G - 1)
+    flat = grid.reshape(-1)
+    at = lambda ix, iy, iz: flat.index_select(0, ((ix * G + iy) * G + iz).reshape(-1)
+                                              ).reshape(ix.shape)
+    x0, y0, z0 = i0[..., 0], i0[..., 1], i0[..., 2]
+    x1, y1, z1 = i1[..., 0], i1[..., 1], i1[..., 2]
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    c00 = at(x0, y0, z0) * (1 - fx) + at(x1, y0, z0) * fx
+    c10 = at(x0, y1, z0) * (1 - fx) + at(x1, y1, z0) * fx
+    c01 = at(x0, y0, z1) * (1 - fx) + at(x1, y0, z1) * fx
+    c11 = at(x0, y1, z1) * (1 - fx) + at(x1, y1, z1) * fx
+    c0 = c00 * (1 - fy) + c10 * fy
+    c1 = c01 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz
+
+
+def shape_loss(points: torch.Tensor, density: torch.Tensor, grid: ShapeGrid,
+               delta: float = 0.2) -> torch.Tensor:
+    """The weighted cross entropy of the NeRF occupancy at the samples
+    (``points`` [..., 3], ``density`` [...] or [..., 1]) against the guide's
+    inside indicator, summed."""
+    if density.dim() == points.dim():
+        density = density[..., 0]
+    with torch.no_grad():
+        indicator = (_trilinear(grid.winding, points, grid.bound) > 0.5).float()
+        weight = _trilinear(grid.weight, points, grid.bound)
+        q = torch.clamp(indicator, 1e-4, 1.0 - 1e-4)
+    nerf_occ = torch.clamp(1.0 - torch.exp(-delta * density), 0.0, 1.1)
+    ce = -(nerf_occ * torch.log(q) + (1.0 - nerf_occ) * torch.log(1.0 - q))
+    return torch.sum(ce * weight)

@@ -110,8 +110,10 @@ class DreamFusion(DreamMat):
                                          batch["light_positions"], draws,
                                          step=self.global_step, is_train=is_train, **kw)
 
-    def regularizers(self, out: Dict[str, torch.Tensor], step: int):
-        """(weighted sum, metrics) of the orient, sparsity and opaque losses."""
+    def regularizers(self, out: Dict[str, torch.Tensor], step: int,
+                     batch: Optional[Dict[str, Any]] = None):
+        """(weighted sum, metrics) of the orient, sparsity and opaque losses
+        (``batch``: the training batch, for losses over the image)."""
         loss_cfg = dict(self.cfg.loss)
         loss, metrics = 0.0, {}
         if "normal" in out:
@@ -161,7 +163,7 @@ class DreamFusion(DreamMat):
         img, kw = self.guidance_input(out, batch)
         g = self.guidance(img, self.prompt_utils, batch["elevation"], batch["azimuth"],
                           batch["camera_distances"], None, step=step, draws=draws, **kw)
-        reg, metrics = self.regularizers(out, step)
+        reg, metrics = self.regularizers(out, step, batch)
         loss = C(dict(self.cfg.loss).get("lambda_sds", 1.0), step) * g["loss_sds"] + reg
         loss.backward()
         self.optimizer.step()

@@ -59,5 +59,5 @@ class Fantasia3D(DreamFusion):
             return as_image(lat, batch), {"rgb_as_latents": True}
         return as_image(out["comp_normal"], batch), {}
 
-    def regularizers(self, out: Dict[str, torch.Tensor], step: int):
+    def regularizers(self, out: Dict[str, torch.Tensor], step: int, batch=None):
         return (0.0, {}) if self.cfg.texture else self.mesh_regularizers(out, step)

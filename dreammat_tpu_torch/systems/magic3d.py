@@ -55,7 +55,7 @@ class Magic3D(DreamFusion):
     def train_render_kw(self) -> Dict[str, Any]:
         return {"render_rgb": True} if self.cfg.refinement else {}
 
-    def regularizers(self, out: Dict[str, torch.Tensor], step: int):
+    def regularizers(self, out: Dict[str, torch.Tensor], step: int, batch=None):
         if self.cfg.refinement:
             return self.mesh_regularizers(out, step)
         return super().regularizers(out, step)

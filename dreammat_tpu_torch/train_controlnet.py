@@ -42,7 +42,7 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, Any]:
     if args.n_model != 1:
         raise NotImplementedError(
             "--n-model > 1: tensor- and data-parallel ControlNet training is not ported yet "
-            "(ROADMAP queue 1, item 13)")
+            "(ROADMAP queue 1, \"More than one card\")")
 
     import dreammat_tpu_torch
     import dreammat_tpu_torch.systems  # noqa: F401  (registry)

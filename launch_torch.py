@@ -12,7 +12,10 @@ have no prerender, render their test views by volume rendering and export
 the density isosurface as an OBJ with vertex colours, and the DMTet systems
 (``configs/fantasia3d.yaml``, Magic3D's refinement, ProlificDreamer's
 ``geometry`` and ``texture`` stages) the same through the mesh rasterizer
-and the SDF's level set;
+and the SDF's level set, and the rest of the volume family (Latent-NeRF and
+SJC from ``configs/sjc_tiny.yaml`` with ``system_type`` and blocks replaced,
+the patch renderer; TextMesh from ``configs/textmesh.yaml``, NeuS over the
+implicit SDF) the same as the NeRF volume;
 ``--validate`` / ``--test`` / ``--export`` run one of them from a
 checkpoint given by ``--resume``. A UV-space field
 (``system.geometry.n_input_dims=2``) cannot be exported (the reference

@@ -375,3 +375,15 @@ def test_safetensors_io_matches_the_package(tmp_path):
         assert sorted(got) == sorted(tensors)
         for k, v in tensors.items():
             assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+def test_n_model_message_names_a_roadmap_item():
+    import re
+
+    from dreammat_tpu_torch import train_controlnet
+
+    with pytest.raises(NotImplementedError) as err:
+        train_controlnet.main(["--config", "configs/controlnet_train.yaml", "--n-model", "2"])
+    title = re.search(r'ROADMAP queue 1, "([^"]+)"', str(err.value)).group(1)
+    with open("ROADMAP.md") as f:
+        assert f"**{title}.**" in f.read()
