@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about eight minutes
+    python3 chip_smoke.py                 # everything, about eleven minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -222,7 +222,37 @@ which fails the run on any error:
    and on the CPU within 2e-3. Each run's seconds, warm step, peak memory
    and test-view seconds are printed. The same runs go on the CPU at tiny
    size with ``drive_volume_rest(work, device="cpu", size="tiny")``.
-15. A ``{"kernels": [...]}`` line, the card's line, and last
+15. Main path 10: the single-image family and DeepFloyd IF
+   (``drive_single_image``): the input image is made first, the torus of
+   main path 3 turned to face Zero123's reference camera and cast through
+   kernel B at 512^2 (RGBA, ``_depth.png``, ``_normal.png``); then eight
+   ``launch_torch.main(["--config", ..., "--train", ...])`` runs of
+   ``SINGLE_IMAGE_RUNS`` under ``outputs/chip_smoke_single_image/`` at full
+   width, random weights in bf16, 3 steps, 1 test view: Zero123
+   (``configs/zero123.yaml``, accumulate mode, the depth and normal side
+   files on, renders cut from 128^2, which runs out of memory, to
+   ``SINGLE_IMAGE_RES`` = 64^2), its simple
+   system, image-conditioned DreamFusion (the SD2.1 guidance, 64^2),
+   Zero123's refinement (DMTet 128, the rasterizer, 512^2), Magic123's
+   volume stage (SD2.1 and Zero123 on one view, 64^2) and its refinement
+   (512^2), DreamFusion-IF (``configs/dreamfusion.yaml`` with
+   ``deep-floyd-guidance`` and the T5-XXL prompt processor) without and
+   with Perp-Neg; then the ``zero123-vsd-guidance`` phase (3 AdamW steps of
+   the LoRA state on ``loss_lora`` plus ``loss_vsd``'s image gradient).
+   Per run: finite losses and parameters, the test PNG and ``model.obj``;
+   kernel A by batch exactly ``SINGLE_IMAGE_RUNS`` says, C and D none,
+   kernel B one a refinement step and one an eval chunk, none elsewhere;
+   the VSD phase kernel A 64 at B = 2 and 32 at B = 1, C 32 and D 32 a
+   step, the LoRA factors and camera embedding moved and the frozen UNet
+   not (checksums); for Zero123 2048 eval rays card against CPU within
+   2e-3 and the CLIP token and ``c_concat`` card against CPU in fp32
+   within 1e-3. The kernel phase also checks A at B = 2 and 1 and C and D
+   at B = 1 at the Zero123 UNet's shapes (``ZERO123_ATTN_SHAPES``: 32^2
+   latents, cross-attention to one token, M = 1). Each run's first and
+   warm step, peak memory and test-view seconds are printed. The same runs
+   go on the CPU at tiny size with ``drive_single_image(work,
+   device="cpu", size="tiny")``.
+16. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -3130,6 +3160,467 @@ def phase_volume_rest() -> dict:
     return res
 
 
+# Main path 10, the single-image family and DeepFloyd IF. The input image is
+# a render of the torus of main path 3, turned to face the reference camera
+# and scaled to its view. Zero123's volume runs render at SINGLE_IMAGE_RES,
+# the largest side that fits the card (the reference view and the random
+# view in one render, 512 samples, 8 hash-grid queries a sample with the
+# normal perturbation: configs/zero123.yaml's 128^2, 134M queries, runs out
+# of memory, 64^2 peaks at 75.3 GB; PERF.md section 5); the prompted SD
+# guidance encodes the render at its own size, so those runs render at 64^2
+# (latents that divide by 8) without the normal perturbation; the refinement
+# runs at 512^2 (DMTet resolution 128).
+SINGLE_IMAGE_RES = 64
+SINGLE_IMAGE_SD_RES = 64
+SINGLE_IMAGE_REFINE_RES = 512
+SINGLE_IMAGE_INPUT_RES = 512
+SINGLE_IMAGE_PROMPT = "a glazed ceramic ring"
+_Z123_FULL = ("{model_size: zero123, half_precision_weights: true, cache_dir: null, "
+              "cond_image_path: %s, cond_elevation_deg: 0.0, cond_azimuth_deg: 0.0, "
+              "cond_camera_distance: 3.8, guidance_scale: 3.0, width: 256, height: 256}")
+_Z123_TINY = ("{model_size: tiny, half_precision_weights: false, cache_dir: null, "
+              "cond_image_path: %s, cond_camera_distance: 3.8, guidance_scale: 3.0, "
+              "width: 24, height: 24}")
+_SD_BLOCK = {"sd21": ("system.guidance!={model_size: sd21, half_precision_weights: true, "
+                      "use_controlnet: false, guidance_scale: 100.0, cache_dir: null}"),
+             "tiny": ("system.guidance!={model_size: tiny, half_precision_weights: false, "
+                      "use_controlnet: false, guidance_scale: 100.0, cache_dir: null}")}
+_SD_PROMPT = ("system.prompt_processor!={model_size: %s, prompt: " + SINGLE_IMAGE_PROMPT
+              + ", use_cache: false}")
+_DMTET = ["system.refinement=true",
+          "system.geometry!={radius: 1.0, isosurface_resolution: %d, shape_init: sphere, "
+          "shape_init_params: 0.5, n_feature_dims: 3}", "system.renderer!={radius: 1.0}"]
+_MAGIC123_LOSS = ("system.loss!={lambda_sds: 0.025, lambda_3d_sds: 1.0, lambda_rgb: 1000.0, "
+                  "lambda_mask: 100.0, lambda_orient: 1.0, lambda_normal_smoothness_2d: 1.0, "
+                  "lambda_normal_consistency: 1000.0, lambda_laplacian_smoothness: 10.0}")
+# configs/zero123.yaml cut to the CPU tiny form
+SINGLE_IMAGE_TINY = [
+    "system.geometry.pos_encoding_config={otype: HashGrid, n_levels: 4, "
+    "n_features_per_level: 2, log2_hashmap_size: 10, base_resolution: 4, per_level_scale: 1.5}",
+    "system.geometry.isosurface_resolution=24", "system.renderer.num_samples_per_ray=16",
+    "system.renderer.grid_resolution=8", "system.renderer.eval_chunk_rays=256",
+]
+# per run: (config, kind, kernel A launches a step by batch)
+SINGLE_IMAGE_RUNS = {
+    "zero123": ("configs/zero123.yaml", "zero123", {2: UNET_ATTENTIONS}),
+    "zero123_simple": ("configs/zero123.yaml", "simple", {2: UNET_ATTENTIONS}),
+    "image_condition_dreamfusion": ("configs/zero123.yaml", "icdf", {2: UNET_ATTENTIONS}),
+    "zero123_refine": ("configs/zero123.yaml", "zero123_refine", {2: UNET_ATTENTIONS}),
+    "magic123": ("configs/zero123.yaml", "magic123", {2: 2 * UNET_ATTENTIONS}),
+    "magic123_refine": ("configs/zero123.yaml", "magic123_refine", {2: 2 * UNET_ATTENTIONS}),
+    "dreamfusion_if": ("configs/dreamfusion.yaml", "if", {2: UNET_ATTENTIONS}),
+    "dreamfusion_if_perp_neg": ("configs/dreamfusion.yaml", "if_perp_neg",
+                                {4: UNET_ATTENTIONS}),
+}
+# the VSD phase, a step: the pretrained CFG pass and the LoRA branch's camera
+# CFG pass (B = 2 each), the regression (B = 1) and its backward
+ZERO123_VSD_PER_STEP = {"fwd_by_batch": {2: 2 * UNET_ATTENTIONS, 1: UNET_ATTENTIONS},
+                        "dq": UNET_ATTENTIONS, "dkv": UNET_ATTENTIONS}
+# (N, M, H) of every attention of the Zero123 UNet at 32^2 latents (its
+# 256^2 input): self-attention at 32^2, 16^2, 8^2 tokens and the 4^2 mid
+# block, and cross-attention to the one CLIP image token at each
+ZERO123_ATTN_SHAPES = [(1024, 1024, 5), (256, 256, 10), (64, 64, 20), (16, 16, 20),
+                       (1024, 1, 5), (256, 1, 10), (64, 1, 20), (16, 1, 20)]
+
+
+def single_image_argv(work: str, device: str, size: str, run: str, steps: int, png: str,
+                      res: Optional[int] = None) -> list:
+    """``launch_torch.py --train`` of run ``run`` of ``SINGLE_IMAGE_RUNS``:
+    random weights (bf16 at full width), ``steps`` steps with the occupancy
+    refresh every 2, 1 test view, the isosurface export at level 5; the
+    input image ``png`` with its depth and normal side files; ``res``
+    replaces Zero123's render size."""
+    config, kind, _ = SINGLE_IMAGE_RUNS[run]
+    tiny = size == "tiny"
+    argv = ["--config", config, "--train", "--device", device, "data.n_test_views=1",
+            f"trainer.max_steps={steps}", "trainer.val_check_interval=0",
+            "checkpoint.every_n_train_steps=0", f"exp_root_dir={work}/runs_{run}",
+            "use_timestamp=false", "system.renderer.grid_update_every=2"]
+    if kind.startswith("if"):
+        argv += ["system.guidance_type=deep-floyd-guidance",
+                 "system.guidance!={model_size: %s, half_precision_weights: %s, "
+                 "guidance_scale: 20.0, cache_dir: null%s}" % (
+                     ("tiny", "false", ", resolution: 16") if tiny else ("if", "true", "")),
+                 "system.prompt_processor_type=deep-floyd-prompt-processor",
+                 _SD_PROMPT % ("tiny" if tiny else "sd21"),
+                 f"system.geometry.isosurface_threshold={VOLUME_ISO_LEVEL}"]
+        if kind == "if_perp_neg":
+            argv.append("system.prompt_processor.use_perp_neg=true")
+        return argv + ([a for a in VOLUME_TINY if "guidance" not in a and "prompt" not in a]
+                       if tiny else [])
+    refine = kind.endswith("refine")
+    prompted = kind in ("icdf", "magic123", "magic123_refine")
+    side = (16 if tiny else (SINGLE_IMAGE_REFINE_RES if refine else SINGLE_IMAGE_SD_RES
+                             if prompted else res or SINGLE_IMAGE_RES))
+    argv += [f"data.image_path={png}", "data.requires_depth=true", "data.requires_normal=true",
+             "system.loss.lambda_depth=0.05", "system.loss.lambda_normal=0.1",
+             f"data.width={side}", f"data.height={side}"]
+    z123 = (_Z123_TINY if tiny else _Z123_FULL) % png
+    if kind == "simple":
+        argv.append("system_type=zero123-simple-system")
+    if kind == "icdf":
+        argv.append("system_type=image-condition-dreamfusion-system")
+    if kind.startswith("magic123"):
+        argv += ["system_type=magic123-system", f"system.guidance_3d!={z123}", _MAGIC123_LOSS]
+    if prompted:
+        argv += ["system.guidance_type=stable-diffusion-guidance", _SD_BLOCK[size],
+                 _SD_PROMPT % ("tiny" if tiny else "sd21"),
+                 "system.renderer.return_normal_perturb=false"]
+    else:
+        argv.append(f"system.guidance!={z123}")
+    if refine:
+        argv += [_DMTET[0], _DMTET[1] % (12 if tiny else 128), _DMTET[2]]
+        argv += ["system.loss.lambda_normal_consistency=1000.0"] if kind == "zero123_refine" \
+            else []
+        if tiny:
+            argv += ["system.geometry.max_crossing_tets=2048",
+                     "system.renderer.sdf_opacity_samples=8",
+                     "system.renderer.eval_chunk_rays=256"]
+    else:
+        argv.append(f"system.geometry.isosurface_threshold={VOLUME_ISO_LEVEL}")
+        argv += SINGLE_IMAGE_TINY if tiny else []
+    return argv
+
+
+def write_input_image(path: str, res: int, device: str, torus=(192, 96)) -> dict:
+    """The input image of path 10: the torus of main path 3 (R 0.7, r 0.28),
+    its axis turned to +x and scaled by 0.6, seen from Zero123's reference
+    camera (``configs/zero123.yaml``: elevation 0, azimuth 0, distance 3.8,
+    fovy 20) at ``res``^2 through ``cast_rays_dense`` (kernel B on the
+    card): ``path`` (RGBA, a Lambert shade of a warm albedo, alpha the
+    hits), its ``_depth.png`` (nearer is brighter) and ``_normal.png``
+    ((n + 1) / 2). Returns the hit share and the cast's seconds."""
+    from PIL import Image
+
+    from dreammat_tpu_torch.models.mesh import torus_arrays
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.utils import ops as uops
+
+    v, f = torus_arrays(0.7, 0.28, *torus)
+    v = (np.stack([v[:, 2], v[:, 1], -v[:, 0]], axis=-1) * 0.6).astype(np.float32)
+    bvh = bvh_lib.build_bvh(v, f, device=device)
+    pos = torch.tensor([[3.8, 0.0, 0.0]], device=device)
+    c2w = uops.get_c2w(pos, torch.zeros(1, 3, device=device),
+                       torch.tensor([[0.0, 0.0, 1.0]], device=device))[0]
+    focal = 0.5 * res / np.tan(0.5 * np.deg2rad(20.0))
+    dirs = uops.get_ray_directions(res, res, float(focal), device=device)
+    ro, rd = uops.get_rays(dirs, c2w)
+    t0 = time.time()
+    hits = bvh_lib.cast_rays_dense(bvh, ro.contiguous(), rd.contiguous())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    cast_s = time.time() - t0
+    hit = hits["hit"].cpu().numpy()
+    face = np.clip(hits["face"].cpu().numpy(), 0, None)
+    vt = torch.as_tensor(v)
+    e1 = vt[f[:, 1]] - vt[f[:, 0]]
+    e2 = vt[f[:, 2]] - vt[f[:, 0]]
+    n = torch.nn.functional.normalize(torch.linalg.cross(e1, e2), dim=-1).numpy()[face]
+    n = np.where((n * rd.cpu().numpy()).sum(-1, keepdims=True) > 0, -n, n)
+    light = np.asarray([0.6, 0.3, 0.75]) / np.linalg.norm([0.6, 0.3, 0.75])
+    shade = 0.25 + 0.75 * np.clip((n * light).sum(-1, keepdims=True), 0, 1)
+    rgb = np.asarray([0.85, 0.45, 0.25]) * shade
+    m = hit[:, None]
+    to8 = lambda x: (np.clip(x, 0, 1) * 255).round().astype(np.uint8).reshape(res, res, -1)
+    t = hits["t"].cpu().numpy()
+    depth = np.where(hit, 1.0 - (t - t[hit].min()) / max(np.ptp(t[hit]), 1e-6) * 0.8, 0.0)
+    Image.fromarray(to8(np.concatenate([rgb * m + (1 - m), m], -1)), "RGBA").save(path)
+    Image.fromarray(to8(depth[:, None])[..., 0], "L").save(path.replace("_rgba", "_depth"))
+    Image.fromarray(to8((n + 1) / 2 * m), "RGB").save(path.replace("_rgba", "_normal"))
+    return {"res": res, "hit_share": float(hit.mean()), "cast_s": cast_s, "triangles": len(f)}
+
+
+def conditioning_vs_cpu(guidance) -> dict:
+    """Zero123's conditioning of the input image in fp32, on the card and on
+    the CPU from copies of the run's (bf16) image tower and VAE: max |diff| of
+    the CLIP token and of the unscaled ``c_concat``, relative to their
+    largest values (at most 1e-3: fp32 with TF32 off on the card)."""
+    import copy
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        vision = copy.deepcopy(guidance.vision).float().to(device)
+        vae = copy.deepcopy(guidance.vae).float().to(device)
+        cond = guidance.cond_rgb.float().to(device)
+        with torch.no_grad():
+            res[device] = (vision(cond).cpu(), vae.encode_moments(cond * 2.0 - 1.0)[0].cpu())
+        del vision, vae
+    out = {}
+    for i, key in enumerate(("c_crossattn", "c_concat")):
+        a, b = res["cuda"][i], res["cpu"][i]
+        out[key] = float((a - b).abs().max() / b.abs().max())
+        out[key + "_shape"] = list(b.shape)
+    if not max(out["c_crossattn"], out["c_concat"]) <= 1e-3:
+        raise AssertionError(f"Zero123 conditioning, card against the CPU: {out}")
+    return out
+
+
+def zero123_vsd_phase(device: str, size: str, steps: int, png: str) -> dict:
+    """``zero123-vsd-guidance`` at full width (no system drives it): ``steps``
+    AdamW steps (lr 1e-3) of the LoRA state on ``loss_lora`` plus
+    ``loss_vsd``'s image gradient on a 64^2 image, the camera the random
+    view's c2w. The LoRA factors (up and down) and the camera embedding must
+    move, the frozen UNet must not (per-tensor checksums), the image's
+    gradient must be finite and non-zero; on the card kernel A by batch and
+    C and D exactly ``ZERO123_VSD_PER_STEP`` a step."""
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.utils import ops as uops
+    from dreammat_tpu_torch.utils.rng import TorchDraws
+
+    tiny = size == "tiny"
+    g = dreammat_tpu_torch.find("zero123-vsd-guidance")(
+        {"model_size": "tiny" if tiny else "zero123", "half_precision_weights": not tiny,
+         "cache_dir": None, "cond_image_path": png, "cond_camera_distance": 3.8,
+         "width": 24 if tiny else 256, "height": 24 if tiny else 256, "lora_rank": 4,
+         "lora_cfg_training": True, "guidance_scale": 3.0}, device=device)
+    g.init_params(torch.Generator(device=device).manual_seed(0))
+    lora = g.init_lora(torch.Generator(device=device).manual_seed(1))
+    lora0 = {n: p.detach().clone() for n, p in lora.named_parameters()}
+    unet_sums = {n: tensor_checksum(p) for n, p in g.unet.named_parameters()}
+    opt = torch.optim.AdamW(lora.parameters(), lr=1e-3)
+    draws = TorchDraws(0, device)
+    elev, azim, dist = (torch.tensor([x], device=device) for x in (20.0, 60.0, 3.8))
+    c2w = uops.get_c2w(uops.camera_position_from_spherical(elev, azim, dist).to(device))
+    img = torch.rand(1, 3, 64, 64, generator=torch.Generator(device=device).manual_seed(2),
+                     device=device).requires_grad_(True)
+    kernels = (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+               attn.flash_attention_bwd_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    step_s, losses = [], []
+    with AttentionBatches() as batches:
+        for step in range(steps):
+            t0 = time.time()
+            opt.zero_grad(set_to_none=True)
+            img.grad = None
+            out = g(img, elev, azim, dist, c2w=c2w, lora=lora, step=step, draws=draws)
+            (out["loss_vsd"] + out["loss_lora"]).backward()
+            opt.step()
+            sync()
+            step_s.append(time.time() - t0)
+            losses.append((float(out["loss_vsd"].detach()), float(out["loss_lora"].detach())))
+    moved = {n: (p.detach() - lora0[n]).abs().max().item() for n, p in lora.named_parameters()}
+    r = {"steps": steps, "step_s": step_s, "losses": losses,
+         "launches": {"flash_attn_fwd": kernels[0].launches,
+                      "flash_attn_bwd_dq": kernels[1].launches,
+                      "flash_attn_bwd_dkv": kernels[2].launches},
+         "flash_attn_fwd_by_batch": dict(batches.counts),
+         "lora_moved": {"up": max(v for n, v in moved.items() if n.endswith(".up")),
+                        "down": max(v for n, v in moved.items() if n.endswith(".down")),
+                        "camera_embedding": max(v for n, v in moved.items()
+                                                if n.startswith("camera_embedding"))},
+         "unet_changed": sum(tensor_checksum(p) != unet_sums[n]
+                             for n, p in g.unet.named_parameters()),
+         "image_grad_max": float(img.grad.abs().max())}
+    if not (all(math.isfinite(a) and math.isfinite(b) for a, b in losses)
+            and min(r["lora_moved"].values()) > 0 and r["unet_changed"] == 0
+            and 0 < r["image_grad_max"] < float("inf")):
+        raise AssertionError(f"path 10 zero123 VSD: {r}")
+    want = ZERO123_VSD_PER_STEP
+    want_fwd = {b: k * steps for b, k in want["fwd_by_batch"].items()}
+    if device != "cpu" and (r["flash_attn_fwd_by_batch"] != want_fwd
+                            or r["launches"]["flash_attn_bwd_dq"] != want["dq"] * steps
+                            or r["launches"]["flash_attn_bwd_dkv"] != want["dkv"] * steps):
+        raise AssertionError(f"path 10 zero123 VSD: kernel A by batch "
+                             f"{r['flash_attn_fwd_by_batch']} (expected {want_fwd}), launches "
+                             f"{r['launches']}")
+    log(f"single_image zero123 VSD guidance ({'tiny' if tiny else 'Zero123 width, bf16'}): "
+        f"steps {', '.join(f'{x:.4f}s' for x in step_s)}; kernel A by batch "
+        f"{r['flash_attn_fwd_by_batch']}, C {r['launches']['flash_attn_bwd_dq']}, D "
+        f"{r['launches']['flash_attn_bwd_dkv']}; LoRA moved {r['lora_moved']}, frozen UNet "
+        f"tensors changed {r['unet_changed']}; image grad max {r['image_grad_max']:.3e}; losses "
+        f"(vsd, lora) {losses}")
+    return r
+
+
+def single_image_breakdown(system, dm, step: int) -> dict:
+    """CUDA-event ms of a training step's parts on a fresh batch of the
+    trained scene: the render (the reference and the random view in one
+    call for the single-image systems) forward and backward, and each
+    guidance on the random view's image, forward and the backward of its
+    loss into the image."""
+    from dreammat_tpu_torch.models.volume_renderer import PrefixedDraws
+    from dreammat_tpu_torch.systems.dreamfusion import as_image
+    from dreammat_tpu_torch.systems.zero123 import render_ref_and_random
+    from dreammat_tpu_torch.utils.rng import TorchDraws
+
+    batch = dm.collate(step=step)
+    if type(system).__name__ == "Zero123Simple":  # it renders the random view alone
+        batch = batch["random_camera"]
+    draws = TorchDraws(step, system.device)
+    params = list(system.field.parameters())
+    single = "random_camera" in batch
+    rc = batch["random_camera"] if single else batch
+
+    def render():
+        out = (render_ref_and_random(system, batch, draws)[1] if single
+               else system.render_batch(batch, draws, True, **system.train_render_kw()))
+        (out["comp_rgb"].float().sum() + out["opacity"].sum()).backward()
+        for p in params:
+            p.grad = None
+        return out
+
+    with torch.no_grad():
+        out = render_ref_and_random(system, batch, draws)[1] if single \
+            else system.render_batch(batch, draws, False)
+    img = as_image(out["comp_rgb"], rc).detach().requires_grad_(True)
+    view = (rc["elevation"], rc["azimuth"], rc["camera_distances"])
+    res = {"render": cuda_ms(render, 3)}
+    for name in ("guidance", "guidance_3d"):
+        g = getattr(system, name, None)
+        if g is None:
+            continue
+        if hasattr(g, "cc_w"):  # Zero123: no prompts
+            call = lambda g=g: g(img, *view, step=step, draws=PrefixedDraws(draws, name))
+        else:
+            call = lambda g=g: g(img, system.prompt_utils, *view, None, step=step, draws=draws)
+        res[name] = cuda_ms(lambda call=call: call()["loss_sds"].backward(), 3)
+    return res
+
+
+def drive_single_image(work: str, device: str = "cuda", size: str = "sd21", steps: int = 3,
+                       runs=None) -> dict:
+    """Main path 10 through ``launch_torch.py --train`` of each run of
+    ``SINGLE_IMAGE_RUNS`` (``single_image_argv``) on the input image of
+    ``write_input_image`` (made at ``SINGLE_IMAGE_INPUT_RES``^2 through kernel
+    B): Zero123 (``configs/zero123.yaml`` as written, accumulate mode, with
+    the depth and normal side files), ``zero123-simple-system``,
+    ``image-condition-dreamfusion-system`` (SD2.1 guidance), Zero123's
+    refinement (DMTet at 128, the rasterizer, 512^2), Magic123's volume
+    stage and its refinement (SD2.1 and Zero123 on each view), and
+    DreamFusion-IF (``configs/dreamfusion.yaml`` with ``deep-floyd-guidance``
+    and the T5-XXL prompt processor; once with Perp-Neg), at full width with
+    random weights, ``steps`` steps each, 1 test view; then the
+    ``zero123-vsd-guidance`` phase (``zero123_vsd_phase``). Per run: finite
+    losses and parameters, the field moved (checksums), the test PNG and
+    ``model.obj`` with faces. On the card also kernel A exactly the run's
+    launches a step by batch, C and D none, kernel B one launch a
+    refinement step and one an eval chunk (none in the volume runs); for
+    Zero123's volume run 2048 eval rays card against CPU within 2e-3 and
+    the conditioning card against CPU in fp32, and every run's render and
+    guidance ms (``single_image_breakdown``). Each run's first and warm
+    step seconds, peak memory and test-view seconds. ``runs`` picks runs
+    (``"vsd"`` the VSD phase). Returns each run's numbers; raises on a
+    failed check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work, exist_ok=True)
+    png = os.path.join(work, "ring_rgba.png")
+    tiny = size == "tiny"
+    res_input = write_input_image(png, 48 if tiny else SINGLE_IMAGE_INPUT_RES, device,
+                                  torus=(24, 12) if tiny else (192, 96))
+    if not 0.05 < res_input["hit_share"] < 0.9:
+        raise AssertionError(f"path 10 input image: {res_input}")
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv,
+                "ray_cast": bvh_lib.cast_rays_dense}
+    out_res = {"input_image": res_input, "runs": {}}
+    for run in [r for r in (runs or SINGLE_IMAGE_RUNS) if r != "vsd"]:
+        config, kind, per_step = SINGLE_IMAGE_RUNS[run]
+        for fn in counters.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with AttentionBatches() as batches:
+            out = launch_torch.main(single_image_argv(work, device, size, run, steps, png))
+        sync()
+        system, trial, cfg, dm = out["system"], out["trial_dir"], out["cfg"], out["datamodule"]
+        step_s = list(system.step_seconds)
+        field = system.field
+        r = {"seconds": time.time() - t0, "system": type(system).__name__,
+             "guidance": type(system.guidance).__name__,
+             "renderer": type(system.renderer).__name__,
+             "geometry": type(system.geometry).__name__,
+             "render_hw": [dm.cfg.height, dm.cfg.width],
+             "launches": {k: fn.launches for k, fn in counters.items()},
+             "flash_attn_fwd_by_batch": dict(batches.counts),
+             "step_s": step_s, "first_step_s": step_s[0],
+             "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+             "test_s": list(system.test_seconds), "losses": list(system.step_losses),
+             "step_peak_gb": list(system.step_peak_gb),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+        if getattr(system, "guidance_3d", None) is not None:
+            r["guidance_3d"] = type(system.guidance_3d).__name__
+        if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"path 10 {run}: losses {r['losses']}")
+        if not all(torch.isfinite(p).all() for p in field.parameters()):
+            raise AssertionError(f"path 10 {run}: a parameter is not finite")
+        save = os.path.join(trial, "save")
+        r["test_png"] = check_file(os.path.join(save, f"it{steps}-test", "0.png"),
+                                   b"\x89PNG\r\n\x1a\n", 100)
+        with open(os.path.join(save, "export", "model.obj")) as f:
+            lines = f.read().splitlines()
+        r["obj_v"] = sum(ln.startswith("v ") for ln in lines)
+        r["obj_f"] = sum(ln.startswith("f ") for ln in lines)
+        if not (r["obj_v"] > 0 and r["obj_f"] > 0):
+            raise AssertionError(f"path 10 {run}: model.obj has {r['obj_v']} v, {r['obj_f']} f")
+        if cuda:
+            want = {b: n * steps for b, n in per_step.items()}
+            n_eval = dm.cfg.n_test_views * math.ceil(
+                dm.inner.cfg.eval_height * dm.inner.cfg.eval_width
+                / getattr(system.renderer.cfg, "eval_chunk_rays", 1)) \
+                if kind.endswith("refine") else 0
+            want_b = steps + n_eval if kind.endswith("refine") else 0
+            if (r["flash_attn_fwd_by_batch"] != want or r["launches"]["ray_cast"] != want_b
+                    or r["launches"]["flash_attn_bwd_dq"] or r["launches"]["flash_attn_bwd_dkv"]):
+                raise AssertionError(f"path 10 {run}: kernel A by batch "
+                                     f"{r['flash_attn_fwd_by_batch']} (expected {want}), "
+                                     f"launches {r['launches']} (kernel B expected {want_b})")
+            if run == "zero123":
+                r["render_vs_cpu"] = volume_render_vs_cpu(system, dm, cfg)
+                r["conditioning_vs_cpu"] = conditioning_vs_cpu(system.guidance)
+            r["step_ms"] = single_image_breakdown(system, dm, steps)
+            r["render_share"] = r["step_ms"]["render"] / (1e3 * r["warm_step_s"])
+        log(f"single_image {run} ({r['system']}, {r['guidance']}"
+            + (f" + {r['guidance_3d']}" if "guidance_3d" in r else "")
+            + f", {r['geometry']}, {r['renderer']}, {r['render_hw'][0]}^2 renders): "
+            f"launch_torch.py --train in {r['seconds']:.1f}s; kernel A by batch "
+            f"{r['flash_attn_fwd_by_batch']}, launches {r['launches']}; steps "
+            f"{', '.join(f'{x:.4f}s' for x in step_s)} (first {r['first_step_s']:.4f}s, warm "
+            f"{r['warm_step_s']:.4f}s), peak {', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])}"
+            f" (run {r['peak_gb'] or 0:.2f} GB); test view "
+            f"{', '.join(f'{x:.3f}s' for x in r['test_s'])}; model.obj {r['obj_v']} v, "
+            f"{r['obj_f']} f; losses {', '.join(f'{x:.6g}' for x in r['losses'])}"
+            + (f"; step parts ms {r['step_ms']} (render {100 * r['render_share']:.1f}% of the "
+               f"warm step)" if "step_ms" in r else "")
+            + (f"; {r['render_vs_cpu']['rays']} eval rays card vs CPU: comp_rgb "
+               f"{r['render_vs_cpu']['comp_rgb']:.2e}, opacity {r['render_vs_cpu']['opacity']:.2e}"
+               f", depth (relative) {r['render_vs_cpu']['depth']:.2e}; conditioning card vs CPU "
+               f"{r['conditioning_vs_cpu']}" if "render_vs_cpu" in r else ""))
+        out_res["runs"][run] = r
+        del out, system, field, dm
+        if cuda:
+            torch.cuda.empty_cache()
+    if runs is None or "vsd" in runs:
+        out_res["zero123_vsd"] = zero123_vsd_phase(device, size, steps, png)
+    return out_res
+
+
+def phase_single_image() -> dict:
+    """Main path 10 on the card (``drive_single_image`` at full width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_single_image")
+    res_out = drive_single_image(work)
+    keys = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "ray_cast")
+    res_out["counts"] = {k: sum(r["launches"][k] for r in res_out["runs"].values())
+                         + res_out["zero123_vsd"]["launches"].get(k, 0) for k in keys}
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res_out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3187,6 +3678,14 @@ def main() -> int:
     bwd_vol["latent64_b1"] = timed("attention_dmtet", phase_attention_bwd, gen, 1,
                                    [(1, N, M, H) for N, M, H in ATTN_SHAPES],
                                    autograd_check=False)
+    # the Zero123 UNet at 32^2 latents, cross-attention to one image token:
+    # kernel A at B = 2 (the CFG passes) and 1 (the VSD regression), C and D at B = 1
+    for B in (2, 1):
+        attn_vol[f"zero123_b{B}"] = timed("attention_zero123", phase_attention, gen, B,
+                                          ZERO123_ATTN_SHAPES)
+    bwd_vol["zero123_b1"] = timed("attention_zero123", phase_attention_bwd, gen, 1,
+                                  [(1, N, M, H) for N, M, H in ZERO123_ATTN_SHAPES],
+                                  autograd_check=False)
     vol_rows = volume_kernel_rows(attn_vol, bwd_vol)
     cast_res = timed("ray_cast", phase_ray_cast)
     counts = {"flash_attn_fwd": None, "ray_cast": None}
@@ -3200,7 +3699,8 @@ def main() -> int:
                 "ray_cast": None}
     r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
-    rest_res = None
+    rest_res = single_res = None
+    s_counts = dict(d_counts)
     if not args.kernels_only:
         main_res = timed("main", phase_main, args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -3221,6 +3721,8 @@ def main() -> int:
         d_counts = dmtet_res["counts"]
         rest_res = timed("volume_rest", phase_volume_rest)
         r_counts = rest_res["counts"]
+        single_res = timed("single_image", phase_single_image)
+        s_counts = single_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -3253,7 +3755,13 @@ def main() -> int:
                               "volume_rest": r_counts["flash_attn_fwd"],
                               "volume_rest_by_run_and_batch": rest_res and {
                                   run: r["flash_attn_fwd_by_batch"]
-                                  for run, r in rest_res["runs"].items()}},
+                                  for run, r in rest_res["runs"].items()},
+                              "single_image": s_counts["flash_attn_fwd"],
+                              "single_image_by_run_and_batch": single_res and {
+                                  **{run: r["flash_attn_fwd_by_batch"]
+                                     for run, r in single_res["runs"].items()},
+                                  "zero123_vsd":
+                                      single_res["zero123_vsd"]["flash_attn_fwd_by_batch"]}},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
@@ -3279,7 +3787,8 @@ def main() -> int:
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dq"],
                               "volume": v_counts["flash_attn_bwd_dq"],
                               "dmtet": d_counts["flash_attn_bwd_dq"],
-                              "volume_rest": r_counts["flash_attn_bwd_dq"]},
+                              "volume_rest": r_counts["flash_attn_bwd_dq"],
+                              "single_image": s_counts["flash_attn_bwd_dq"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
                             for r in res["rows"]),
@@ -3295,7 +3804,8 @@ def main() -> int:
          "launches_by_path": {"controlnet_training": cn_counts["flash_attn_bwd_dkv"],
                               "volume": v_counts["flash_attn_bwd_dkv"],
                               "dmtet": d_counts["flash_attn_bwd_dkv"],
-                              "volume_rest": r_counts["flash_attn_bwd_dkv"]},
+                              "volume_rest": r_counts["flash_attn_bwd_dkv"],
+                              "single_image": s_counts["flash_attn_bwd_dkv"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
@@ -3324,7 +3834,11 @@ def main() -> int:
                               "dmtet": d_counts["ray_cast"],
                               "dmtet_by_run_and_stage": dmtet_res and {
                                   run: r["ray_cast"] for run, r in dmtet_res["runs"].items()},
-                              "volume_rest": r_counts["ray_cast"]},
+                              "volume_rest": r_counts["ray_cast"],
+                              "single_image": s_counts["ray_cast"],
+                              "single_image_by_run": single_res and {
+                                  run: r["launches"]["ray_cast"]
+                                  for run, r in single_res["runs"].items()}},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff",
                                         "pairs_morton", "bound_tested_ms", "bound_morton_ms")
@@ -3347,6 +3861,7 @@ def main() -> int:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
                    "volume": vol_res, "dmtet": dmtet_res, "volume_rest": rest_res,
+                   "single_image": single_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,

@@ -2,6 +2,7 @@
 
 from dreammat_tpu_torch.models import (  # noqa: F401
     background, exporter, geometry, geometry_dmtet, geometry_sdf, geometry_volume, guidance,
-    guidance_sds, guidance_triple, guidance_vsd, material, material_pbr, material_simple,
-    mesh_rasterizer, prompt, renderer, volume_renderer,
+    guidance_deepfloyd, guidance_sds, guidance_triple, guidance_unified, guidance_vsd,
+    guidance_zero123, material, material_pbr, material_simple, mesh_rasterizer, prompt,
+    prompt_deepfloyd, renderer, volume_renderer,
 )

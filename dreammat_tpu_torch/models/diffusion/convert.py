@@ -6,7 +6,12 @@ the same key mangling (flat flax module names such as ``down_blocks_0`` to
 diffusers' dotted ``down_blocks.0``) and kernel transposes
 (conv HWIO -> OIHW, dense IO -> OI). It works on nested dicts of numpy
 arrays, so no JAX is needed to run it. Covers ``unet``, ``controlnet``,
-``vae`` and ``clip``; ``controlnet_trainer_state_from_flax`` carries the JAX
+``vae``, ``clip``, ``clip_vision`` (Zero123's image tower, HF's
+``CLIPVisionModelWithProjection`` keys) and ``t5`` (DeepFloyd IF's text
+tower, HF's ``T5EncoderModel`` keys): the port's modules carry those key
+names, so an HF-layout checkpoint loads through ``load_diffusers_weights``
+and a flax tree through ``flax_to_torch_state_dict``;
+``controlnet_trainer_state_from_flax`` carries the JAX
 ControlNet trainer's whole parameter tree across. Also holds the random
 initialization the port uses when no checkpoint is present, the checkpoint
 file lookup and reader for diffusers-layout weights, the loader of such a
@@ -61,7 +66,61 @@ def _clip_rename(name: str) -> str:
     return name
 
 
+def _t5_key(path: Tuple[str, ...]) -> str:
+    """The JAX T5Encoder tree -> HF ``T5EncoderModel`` keys (raw RMSNorm
+    scales, the shared relative position bias in block 0)."""
+    if path == ("token_embedding", "embedding"):
+        return "shared.weight"
+    if path == ("relative_attention_bias",):
+        return "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    if path == ("final_layer_norm",):
+        return "encoder.final_layer_norm.weight"
+    m = re.match(r"block_(\d+)", path[0])
+    if m:
+        n, rest = m.group(1), path[1:]
+        if rest == ("attn_layer_norm",):
+            return f"encoder.block.{n}.layer.0.layer_norm.weight"
+        if rest == ("ff_layer_norm",):
+            return f"encoder.block.{n}.layer.1.layer_norm.weight"
+        if rest[0] == "attention":
+            return f"encoder.block.{n}.layer.0.SelfAttention.{rest[1]}.weight"
+        if rest[0] in ("wi_0", "wi_1", "wo"):
+            return f"encoder.block.{n}.layer.1.DenseReluDense.{rest[0]}.weight"
+    raise KeyError(f"unmapped t5 path {path}")
+
+
+def _clip_vision_key(path: Tuple[str, ...]) -> str:
+    """The JAX CLIPVisionModel tree -> HF ``CLIPVisionModelWithProjection``
+    keys, HF's literal ``pre_layrnorm`` included."""
+    if path == ("patch_embedding", "kernel"):
+        return "vision_model.embeddings.patch_embedding.weight"
+    if path == ("class_embedding",):
+        return "vision_model.embeddings.class_embedding"
+    if path == ("position_embedding",):
+        return "vision_model.embeddings.position_embedding.weight"
+    if path[0] in ("pre_layernorm", "post_layernorm"):
+        name = "pre_layrnorm" if path[0] == "pre_layernorm" else "post_layernorm"
+        return f"vision_model.{name}.{'weight' if path[1] == 'scale' else 'bias'}"
+    if path == ("visual_projection", "kernel"):
+        return "visual_projection.weight"
+    m = re.match(r"layers_(\d+)", path[0])
+    if m:
+        n, rest = m.group(1), path[1:]
+        leaf = "weight" if rest[-1] in ("kernel", "scale") else "bias"
+        mod = rest[0]
+        if mod in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            mod = "self_attn." + mod
+        elif mod in ("fc1", "fc2"):
+            mod = "mlp." + mod
+        return f"vision_model.encoder.layers.{n}.{mod}.{leaf}"
+    raise KeyError(f"unmapped clip_vision path {path}")
+
+
 def flax_path_to_torch_key(path: Tuple[str, ...], model_type: str) -> str:
+    if model_type == "t5":
+        return _t5_key(path)
+    if model_type == "clip_vision":
+        return _clip_vision_key(path)
     *mods, leaf = path
     if model_type == "clip" and leaf == "position_embedding" and not mods:
         return "text_model.embeddings.position_embedding.weight"

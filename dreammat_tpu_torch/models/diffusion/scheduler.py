@@ -1,5 +1,6 @@
 """DDPM forward process and deterministic DDIM sampling (SD 2.x:
-scaled-linear betas 0.00085 -> 0.012 over 1000 steps, epsilon prediction).
+scaled-linear betas 0.00085 -> 0.012 over 1000 steps, epsilon prediction;
+DeepFloyd IF: ``squaredcos_cap_v2``, the cosine schedule).
 Counterpart of ``dreammat_tpu/models/diffusion/scheduler.py``: the CSD loss
 uses ``add_noise``; ControlNet training adds noise and samples its
 validation grid with ``ddim_step`` over ``ddim_timesteps``."""
@@ -19,10 +20,20 @@ class SchedulerConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"  # | "squaredcos_cap_v2"
 
 
 def make_schedule(cfg: SchedulerConfig = SchedulerConfig(), device="cuda"):
-    betas = np.linspace(cfg.beta_start ** 0.5, cfg.beta_end ** 0.5, cfg.num_train_timesteps) ** 2
+    T = cfg.num_train_timesteps
+    if cfg.beta_schedule == "scaled_linear":
+        betas = np.linspace(cfg.beta_start ** 0.5, cfg.beta_end ** 0.5, T) ** 2
+    elif cfg.beta_schedule == "squaredcos_cap_v2":
+        # diffusers' betas_for_alpha_bar with the cosine alpha-bar
+        abar = lambda s: np.cos((s + 0.008) / 1.008 * np.pi / 2) ** 2
+        i = np.arange(T, dtype=np.float64)
+        betas = np.minimum(1.0 - abar((i + 1) / T) / abar(i / T), 0.999)
+    else:
+        raise ValueError(f"unknown beta_schedule {cfg.beta_schedule}")
     alphas_cumprod = np.cumprod(1.0 - betas)
     return {"alphas_cumprod": torch.tensor(alphas_cumprod, dtype=torch.float32,
                                            device=resolve_device(device))}

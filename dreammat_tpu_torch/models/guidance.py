@@ -13,8 +13,12 @@ UNet pass under ``torch.no_grad()`` (the JAX stop-gradient): three (text,
 uncond, null), or with Perp-Neg five (text, uncond, two interpolated
 negatives interleaved per sample, null), where ``eps_perpneg`` sums the
 negatives' components perpendicular to ``eps_text - eps_uncond``, weighted
-per view. The condition stack stays batch 1, so the ControlNet's
-image-resolution stem runs once for all replicas.
+per view. The latents are replicated in blocks of B as in the JAX package
+and the reference, so at B > 1 a negative row runs on another sample's
+latent (DreamMat trains at B = 1; ROADMAP, queue 3; the SD and DeepFloyd
+guidances give each row its own sample, ``perp_neg_rows``). The condition stack stays
+batch 1, so the ControlNet's image-resolution stem runs once for all
+replicas.
 
 Weights: random-initialized, then the UNet and the VAE are loaded from
 ``cache_dir/{unet,vae}`` (diffusers layout, ``strict=False`` through
@@ -47,6 +51,17 @@ from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.hw import resolve_device
 from dreammat_tpu_torch.utils.ops import perpendicular_component
 from dreammat_tpu_torch.utils.schedule import C
+
+
+def perp_neg_rows(B: int, null: bool, device) -> torch.Tensor:
+    """The sample of each row of a Perp-Neg pass: text and uncond in blocks
+    of B, then the two negatives interleaved per sample ([b0, b0, b1, b1,
+    ...], as the prompt embeddings order them), then (with ``null``) the null
+    block. Each negative thus runs on its own sample's latent; replicating
+    the latents in blocks, as the JAX package and the reference do, pairs
+    sample b's negatives with other samples' latents when B > 1."""
+    b = torch.arange(B, device=device)
+    return torch.cat([b, b, b.repeat_interleave(2)] + ([b] if null else []))
 
 
 @dreammat_tpu_torch.register("stable-diffusion-dreammat-guidance")
@@ -141,15 +156,19 @@ class StableDiffusionLightGuidance(BaseObject):
         """[B,3,H,W] in [0,1] -> scaled latents [B,4,h,w] (fp32)."""
         return self.vae.encode(rgb * 2.0 - 1.0, eps).float()
 
-    def noise_pred(self, latents_noisy, t, text_embeddings, image_cond, scales, n_copies: int):
-        """Batched eps prediction on ``n_copies`` replicas of the latent."""
-        latent_in = torch.cat([latents_noisy] * n_copies, dim=0)
-        t_in = torch.cat([t] * n_copies, dim=0)
+    def noise_pred(self, latents_noisy, t, text_embeddings, image_cond, scales, n_copies: int,
+                   rows: Optional[torch.Tensor] = None):
+        """Batched eps prediction on ``n_copies`` replicas of the latent, in
+        blocks of B, or with the sample of each row given by ``rows``
+        (``perp_neg_rows``)."""
+        if rows is None:
+            rows = torch.arange(latents_noisy.shape[0], device=t.device).repeat(n_copies)
+        latent_in, t_in = latents_noisy[rows], t[rows]
         down = mid = None
         if image_cond is not None:
             for cnet, cond, scale in zip(self.controlnets, image_cond, scales):
                 if cond.shape[0] != 1:
-                    cond = torch.cat([cond] * n_copies, dim=0)
+                    cond = cond[rows]
                 d, m = cnet(latent_in, t_in, text_embeddings, cond, scale)
                 if down is None:
                     down, mid = list(d), m
@@ -251,7 +270,8 @@ class StableDiffusionLightGuidance(BaseObject):
             e_pos = eps_text - eps_uncond
             eps_perpneg = torch.zeros_like(e_pos)
             for i in range(2):
-                # the negatives are interleaved per sample: [n0(b0), n1(b0), n0(b1), ...]
+                # the negatives are interleaved per sample: [n0(b0), n1(b0), n0(b1), ...];
+                # the latents replicated in blocks, as the JAX package and the reference do
                 eps_perpneg = eps_perpneg + neg_w[:, i].reshape(-1, 1, 1, 1) * \
                     perpendicular_component(eps_neg[i::2] - eps_uncond, e_pos)
         else:

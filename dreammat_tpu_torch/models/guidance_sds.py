@@ -11,7 +11,8 @@ replicas differ:
 
 with a = alphas_cumprod[t], two replicas (text, uncond), or four with
 Perp-Neg (text, uncond and the two negatives, which the prompt embeddings
-interleave per sample: eps_neg[i::2] is negative i of every sample).
+interleave per sample: eps_neg[i::2] is negative i of every sample, each
+run on its own sample's latent, ``perp_neg_rows``).
 
 ``use_sjc`` switches to Score Jacobian Chaining: sigma = sqrt((1-a)/a), the
 latent is perturbed additively (z = y + sigma n, scaled by 1/sqrt(1+sigma^2)
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 
 import dreammat_tpu_torch
 from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
-from dreammat_tpu_torch.models.guidance import StableDiffusionLightGuidance
+from dreammat_tpu_torch.models.guidance import StableDiffusionLightGuidance, perp_neg_rows
 from dreammat_tpu_torch.utils.ops import perpendicular_component
 
 
@@ -98,7 +99,8 @@ class StableDiffusionGuidance(StableDiffusionLightGuidance):
             emb, neg_w = prompt_utils.get_text_embeddings_perp_neg(
                 elevation, azimuth, camera_distances, return_null=False)
             with torch.no_grad():
-                eps = self.noise_pred(latents_noisy.detach(), t, emb, image_cond, scales, 4)
+                eps = self.noise_pred(latents_noisy.detach(), t, emb, image_cond, scales, 4,
+                                      rows=perp_neg_rows(B, False, t.device))
             eps_text, eps_uncond, eps_neg = eps[:B], eps[B:2 * B], eps[2 * B:]
             e_pos = eps_text - eps_uncond
             accum = torch.zeros_like(e_pos)

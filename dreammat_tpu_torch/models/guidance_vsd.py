@@ -56,6 +56,35 @@ class LoRAState(nn.Module):
         self.camera_embedding = camera_embedding
 
 
+def new_lora_state(unet: nn.Module, rank: int, camera_dim: int, temb_dim: int,
+                   generator: torch.Generator, device) -> LoRAState:
+    """LoRA factors for every site of ``unet`` (``init_lora_params``, seeded
+    from ``generator``) and a ``TimestepEmbedding(camera_dim -> temb_dim)``
+    with normal(0, 1/sqrt(fan_in)) weights and zero biases, fp32 on
+    ``device``."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device).item())
+    layers = lora_lib.init_lora_params(unet, rank, seed=seed)
+    cam = L.TimestepEmbedding(camera_dim, temb_dim).to(device)
+    with torch.no_grad():
+        for lin in (cam.linear_1, cam.linear_2):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
+                                         device=device) / math.sqrt(lin.in_features))
+            lin.bias.zero_()
+    return LoRAState(layers, cam)
+
+
+def merged_unet_params(unet: nn.Module, lora: LoRAState,
+                       dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The UNet's tensors that the LoRA branch replaces: every site's merged
+    weight and the camera embedding in the class-embedding slot (cast to
+    ``dtype``). Differentiable in ``lora``."""
+    merged = lora_lib.merge_lora(unet, lora.layers, 1.0)
+    for name, p in lora.camera_embedding.named_parameters():
+        merged["class_embedding." + name] = p.to(dtype)
+    return merged
+
+
 @dreammat_tpu_torch.register("stable-diffusion-vsd-guidance")
 class StableDiffusionVSDGuidance(StableDiffusionGuidance):
     @dataclass
@@ -76,30 +105,15 @@ class StableDiffusionVSDGuidance(StableDiffusionGuidance):
         ``generator``) and a camera embedding (normal(0, 1/sqrt(fan_in))
         weights, zero biases), fp32 on the guidance's device."""
         assert self.unet is not None, "init_params first"
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=generator.device).item())
-        layers = lora_lib.init_lora_params(self.unet, self.cfg.lora_rank, seed=seed)
-        cam = L.TimestepEmbedding(CAMERA_DIM, self.unet_cfg.block_out_channels[0] * 4)
-        cam = cam.to(self.device)
-        with torch.no_grad():
-            for lin in (cam.linear_1, cam.linear_2):
-                lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
-                                             device=self.device) / math.sqrt(lin.in_features))
-                lin.bias.zero_()
-        state = LoRAState(layers, cam)
+        state = new_lora_state(self.unet, self.cfg.lora_rank, CAMERA_DIM,
+                               self.unet_cfg.block_out_channels[0] * 4, generator, self.device)
         dreammat_tpu_torch.info("VSD lora: %d sites, %d params (rank %d) + camera embedding",
-                                len(layers.sites), lora_lib.lora_param_count(layers),
+                                len(state.layers.sites), lora_lib.lora_param_count(state.layers),
                                 self.cfg.lora_rank)
         return state
 
     def merged_unet_params(self, lora: LoRAState) -> Dict[str, torch.Tensor]:
-        """The UNet's tensors that the LoRA branch replaces: every site's
-        merged weight and the camera embedding in the class-embedding slot
-        (cast to the UNet's dtype). Differentiable in ``lora``."""
-        merged = lora_lib.merge_lora(self.unet, lora.layers, 1.0)
-        for name, p in lora.camera_embedding.named_parameters():
-            merged["class_embedding." + name] = p.to(self.dtype)
-        return merged
+        return merged_unet_params(self.unet, lora, self.dtype)
 
     def lora_eps(self, merged: Dict[str, torch.Tensor], latents, t, emb, cam) -> torch.Tensor:
         """One LoRA-branch eps prediction, conditioned on the camera."""

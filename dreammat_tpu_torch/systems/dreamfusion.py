@@ -44,6 +44,13 @@ def binary_cross_entropy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -(y * torch.log(x) + (1 - y) * torch.log(1 - x)).mean()
 
 
+def orient_loss(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The orient term of a volume render's outputs (the module docstring's)."""
+    ndv = torch.sum(out["normal"] * out["t_dirs"], dim=-1)
+    n_fg = torch.clamp((out["opacity"] > 0).sum(), min=1)
+    return torch.sum(out["weights"].detach() * torch.clamp(ndv, min=0.0) ** 2) / n_fg
+
+
 def as_image(x: torch.Tensor, batch: Dict[str, Any]) -> torch.Tensor:
     """Per-ray values [H*W, C] of a training batch -> an image [1, C, H, W]."""
     return x.reshape(1, batch["height"], batch["width"], -1).permute(0, 3, 1, 2)
@@ -117,10 +124,7 @@ class DreamFusion(DreamMat):
         loss_cfg = dict(self.cfg.loss)
         loss, metrics = 0.0, {}
         if "normal" in out:
-            w = out["weights"].detach()
-            ndv = torch.sum(out["normal"] * out["t_dirs"], dim=-1)
-            n_fg = torch.clamp((out["opacity"] > 0).sum(), min=1)
-            metrics["loss_orient"] = torch.sum(w * torch.clamp(ndv, min=0.0) ** 2) / n_fg
+            metrics["loss_orient"] = orient_loss(out)
             loss = loss + C(loss_cfg.get("lambda_orient", 0.0), step) * metrics["loss_orient"]
         metrics["loss_sparsity"] = torch.sqrt(out["opacity"] ** 2 + 0.01).mean()
         loss = loss + C(loss_cfg.get("lambda_sparsity", 0.0), step) * metrics["loss_sparsity"]

@@ -32,6 +32,7 @@ from dreammat_tpu.models.diffusion import convert as jconvert
 from dreammat_tpu.models.prompt import PromptEmbeddings as JPE
 from dreammat_tpu_torch.models.diffusion.convert import flax_to_torch_state_dict
 from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
+from dreammat_tpu_torch.models.guidance import perp_neg_rows
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
 from dreammat_tpu_torch.utils.ops import perpendicular_component
 
@@ -112,20 +113,20 @@ def pair():
     return jg, tg, emb
 
 
-def _inputs(B, latents=False, seed=3):
+def _inputs(B, latents=False, seed=3, azim=(40.0, -120.0)):
     rng = np.random.RandomState(seed)
     C = 4 if latents else 3
     rgb = rng.uniform(size=(B, HW, HW, C)).astype(np.float32)
     cond = rng.uniform(size=(B, HW // 2, HW // 2, 4)).astype(np.float32)
     elev = np.float32([10.0, 30.0][:B])
-    azim = np.float32([40.0, -120.0][:B])
+    azim = np.float32(azim[:B])
     return rgb, cond, elev, azim, np.full((B,), 3.5, np.float32)
 
 
 def _run(jg, tg, emb, B, perp_neg=False, rgb_as_latents=False, with_cond=False, step=100,
-         key=5):
+         key=5, azim=(40.0, -120.0)):
     """(JAX, port) of (loss, d loss / d rgb [B,H,W,C], grad_norm)."""
-    rgb, cond, elev, azim, dist = _inputs(B, rgb_as_latents)
+    rgb, cond, elev, azim, dist = _inputs(B, rgb_as_latents, azim=azim)
     je = JPE(**{k: jnp.asarray(v) for k, v in emb.items()}, use_perp_neg=perp_neg)
     te = TPE(**{k: torch.from_numpy(v) for k, v in emb.items()}, use_perp_neg=perp_neg)
     k = jax.random.PRNGKey(key)
@@ -187,7 +188,9 @@ def test_sds_guidance_matches_jax(pair, case):
 
 def test_perp_neg_batch2_interleaved_and_jax_block_fault(pair):
     """At B = 2 the port follows the interleaved layout of the negatives,
-    and the JAX package (blocks) gives another loss."""
+    each run on its own sample's latent, and the JAX package (blocks) gives
+    another loss wherever its block read hands a sample another sample's
+    negative."""
     jg, tg, emb = pair
     for g in (jg, tg):
         _options(g)
@@ -202,7 +205,8 @@ def test_perp_neg_batch2_interleaved_and_jax_block_fault(pair):
         z = add_noise(tg.schedule, lat, noise, t)
         elev, azim, dist = (torch.from_numpy(v) for v in _inputs(B)[2:])
         emb4, neg_w = te.get_text_embeddings_perp_neg(elev, azim, dist, return_null=False)
-        eps = tg.noise_pred(z, t, emb4, None, [], 4)
+        # each negative on its own sample's latent: rows [b0, b1, b0, b1, b0, b0, b1, b1]
+        eps = tg.noise_pred(z, t, emb4, None, [], 4, rows=perp_neg_rows(B, False, t.device))
         e_text, e_unc = eps[:B], eps[B:2 * B]
         e_pos = e_text - e_unc
         acc = torch.zeros_like(e_pos)
@@ -216,5 +220,13 @@ def test_perp_neg_batch2_interleaved_and_jax_block_fault(pair):
         want = 0.5 * float((grad ** 2).sum()) / B
     assert abs(tl - want) <= RTOL * abs(want), (tl, want)
     assert abs(tgn - float(torch.linalg.norm(grad))) <= RTOL * tgn
-    # the JAX package pairs sample b with the wrong negative
-    assert abs(tl - jl) > 1e-3 * abs(jl), (tl, jl)
+    # at these views (one front-side, one not) the negatives run [front, side, side,
+    # front], so the JAX package's block read gives each sample its own: the same loss
+    assert abs(tl - jl) <= RTOL * abs(jl), (tl, jl)
+    # two front-side views, [front, side, front, side]: the block read gives sample 1
+    # sample 0's second negative and another loss, by a share of the Perp-Neg term
+    (jl2, _, _), (tl2, _, _), _, _, _ = _run(jg, tg, emb, B=B, perp_neg=True, step=step,
+                                             azim=(40.0, 70.0))
+    (_, _, _), (tl0, _, _), _, _, _ = _run(jg, tg, emb, B=B, perp_neg=False, step=step,
+                                           azim=(40.0, 70.0))
+    assert abs(tl2 - jl2) > 0.05 * abs(tl2 - tl0), (tl2, jl2, tl0)
