@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, about eleven minutes
+    python3 chip_smoke.py                 # everything, ten to thirteen minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -252,7 +252,31 @@ which fails the run on any error:
    warm step, peak memory and test-view seconds are printed. The same runs
    go on the CPU at tiny size with ``drive_single_image(work,
    device="cpu", size="tiny")``.
-16. A ``{"kernels": [...]}`` line, the card's line, and last
+16. Main path 11: the editing family, Instruct-NeRF2NeRF and Control4D
+   (``drive_edit``): the capture is made first, the torus of main path 3
+   cast through kernel B at 256^2 from 24 cameras on a ring, written as a
+   nerfstudio ``transforms.json`` capture and as one CO3D sequence
+   (``frame_annotations.jgz``, 16-bit depth PNGs, masks); then two
+   ``launch_torch.main(["--config", "configs/dreamfusion.yaml", "--train",
+   ...])`` runs of ``EDIT_RUNS`` under ``outputs/chip_smoke_edit/`` with the
+   InstructPix2Pix guidance at full width in bf16 (512^2 edits, 64^2
+   latents, 20 DDIM steps) and its 768-wide text tower, random weights:
+   Instruct-NeRF2NeRF on the multiview capture at 64^2 (cut from 256^2 for
+   memory), 3 steps, an edit at steps 1 and 2; Control4D on the CO3D
+   sequence at 256^2 through the GAN renderer at the JAX defaults, 6
+   steps, an edit every step; then the ``ip2p-sds`` phase (3 AdamW steps
+   of a 512^2 image under ``use_sds``). Per run: finite losses and
+   parameters, the field and the networks moved (checksums), the frames
+   edited, the test PNG, Control4D's generator levels (0, 1 and 2 each at
+   least once); kernel A exactly 640 launches at B = 3 an edit and 32 an
+   SDS step, nothing at another batch, C, D and B none in the runs; 2048
+   eval rays card against CPU within 2e-3, the perceptual distance of a
+   frame and its edit in fp32 within 1e-4 relative and the first DDIM
+   step's guided eps at full width in fp32 within 1e-3. Each run's first
+   and warm step, edit seconds, peak memory and test-view seconds are
+   printed. The same runs go on the CPU at tiny size with
+   ``drive_edit(work, device="cpu", size="tiny")``.
+17. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -262,6 +286,7 @@ TF32 off (``allow_tf32 = False`` for matmuls and cuDNN).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -2442,8 +2467,11 @@ DMTET_TINY = [
 
 def dmtet_argv(work: str, device: str, size: str, run: str) -> list:
     """``launch_torch.py --train`` of run ``run`` of ``DMTET_RUNS``: random
-    weights, 1 test view, no validation or checkpoint."""
+    weights, 1 test view, no validation or checkpoint; the CPU tiny form
+    also builds the PBR material's split-sum stacks at 16^2."""
     config, steps, _, over = DMTET_RUNS[run]
+    if size == "tiny" and "system.material_type=pbr-material" in over:
+        over = over + ["system.material.splitsum_base_res=16"]
     return (["--config", config, "--train", "--device", device,
              "system.prompt_processor.prompt=a ceramic vase",
              "system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
@@ -2800,8 +2828,9 @@ def drive_dmtet(work: str, device: str = "cuda", size: str = "sd21",
                 run.endswith("geometry")))
         first = run == next(iter(DMTET_RUNS))
         t1 = time.time()
-        r["cast_vs_plain"] = dmtet_cast_check(system, last, clock,
-                                              n_check=65536 if first else 16384)
+        # the CPU form checks the plain caster against itself: 2048 rays do
+        r["cast_vs_plain"] = dmtet_cast_check(system, last, clock, n_check=(
+            65536 if first else 16384) if cuda else 2048)
         r["check_seconds"] = {"cast_vs_plain": time.time() - t1}
         if cuda and first:
             t1 = time.time()
@@ -3621,6 +3650,501 @@ def phase_single_image() -> dict:
     return res_out
 
 
+EDIT_PROMPT = "turn it into glazed blue porcelain"
+# the capture: the torus of main path 3 on a ring of cameras (distance,
+# elevation in degrees, vertical field of view in degrees)
+EDIT_RING = (2.5, 20.0, 40.0)
+EDIT_CAPTURE = {"sd21": (256, 24, (192, 96)), "tiny": (32, 8, (24, 12))}
+# the IP2P guidance at full width (bf16, 512^2 edits: the UNet sees its own
+# 64^2 latents, 20 DDIM steps) and at the CPU's tiny size
+IP2P_DDIM_STEPS = 20
+IP2P_BLOCK = {"sd21": "{model_size: ip2p, half_precision_weights: true, fixed_size: 512, "
+                      f"diffusion_steps: {IP2P_DDIM_STEPS}, cache_dir: null}}",
+              "tiny": "{model_size: tiny, half_precision_weights: false, fixed_size: 16, "
+                      "diffusion_steps: 2, cache_dir: null}"}
+# kernel A's launches: each DDIM step of an edit and each SDS step is one
+# UNet pass of the three CFG replicas
+EDIT_PER_EDIT = {3: IP2P_DDIM_STEPS * UNET_ATTENTIONS}
+IP2P_SDS_PER_STEP = {3: UNET_ATTENTIONS}
+# per run: (system, steps, datamodule block, extra overrides)
+EDIT_RUNS = ("instructnerf2nerf", "control4d")
+EDIT_STEPS = {"instructnerf2nerf": 3, "control4d": 6}
+IN2N_LOSS = ("system.loss!={lambda_l1: 10.0, lambda_p: 10.0, lambda_orient: 0.0, "
+             "lambda_sparsity: 0.0, lambda_opaque: 0.0}")
+C4D_LOSS = ("system.loss!={lambda_l1: 10.0, lambda_p: 10.0, lambda_G: 1.0, lambda_kl: 1.0e-6, "
+            "lambda_D: 1.0, lambda_orient: 0.0, lambda_sparsity: 0.0, lambda_opaque: 0.0}")
+# the GAN renderer at the JAX defaults (ch 64, local 32, ch_mult (1, 2, 4),
+# global 64, PatchGAN 64 x 3) over configs/dreamfusion.yaml's NeRF renderer
+C4D_RENDERER = ("system.renderer!={base_renderer_type: nerf-volume-renderer, base_renderer: "
+                "{radius: 2.0, num_samples_per_ray: %d, estimator: occgrid, grid_resolution: %d, "
+                "grid_update_every: 2%s}%s}")
+# configs/dreamfusion.yaml's field cut to the CPU tiny form
+EDIT_TINY = [
+    "system.geometry.pos_encoding_config.n_levels=4",
+    "system.geometry.pos_encoding_config.log2_hashmap_size=10",
+    "system.geometry.pos_encoding_config.base_resolution=4",
+    "system.geometry.pos_encoding_config.per_level_scale=1.5",
+    "system.geometry.isosurface_resolution=24",
+]
+
+
+def write_capture(root: str, size: str, device: str) -> dict:
+    """Main path 11's capture: the torus of main path 3 (R 0.7, r 0.28) cast
+    through ``cast_rays_dense`` (kernel B on the card) from a ring of
+    cameras looking at the origin (``EDIT_RING``), at ``EDIT_CAPTURE``'s
+    resolution: a Lambert shade of a banded warm albedo over white, the hit
+    mask and the z-depth. Written twice: as a nerfstudio capture
+    (``<root>/multiview/transforms.json``, OPENCV c2w and intrinsics,
+    ``images/``) and as one CO3D sequence (``<root>/co3d/torus/ring/`` with
+    ``images/``, ``masks/`` and 16-bit float depth PNGs, and
+    ``<root>/co3d/torus/frame_annotations.jgz`` with PyTorch3D cameras in
+    the v2 NDC-isotropic convention), the layout ``tests/test_co3d.py``
+    writes. Returns the paths, the hit share and the casts' seconds."""
+    import gzip
+
+    from PIL import Image
+
+    from dreammat_tpu_torch.models.mesh import torus_arrays
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    res, n_cams, torus = EDIT_CAPTURE[size]
+    dist, elev, fovy = EDIT_RING
+    v, f = torus_arrays(0.7, 0.28, *torus)
+    bvh = bvh_lib.build_bvh(v, f, device=device)
+    fl = 0.5 * res / np.tan(0.5 * np.deg2rad(fovy))
+    px = np.arange(res, dtype=np.float32) + 0.5
+    i, j = np.meshgrid(px, px, indexing="xy")
+    dirs_cam = np.stack([(i - res / 2) / fl, (j - res / 2) / fl, np.ones_like(i)], -1)
+    light = np.asarray([0.6, 0.3, 0.75]) / np.linalg.norm([0.6, 0.3, 0.75])
+    n_face = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    n_face /= np.linalg.norm(n_face, axis=-1, keepdims=True)
+    band = 0.7 + 0.3 * ((f[:, 0] // (torus[1] * 8)) % 2)  # rings of 8 segments
+    mv, co3d = os.path.join(root, "multiview"), os.path.join(root, "co3d")
+    seq = os.path.join(co3d, "torus", "ring")
+    for d in (os.path.join(mv, "images"), *(os.path.join(seq, s)
+                                             for s in ("images", "masks", "depths"))):
+        os.makedirs(d, exist_ok=True)
+    cam_trans = np.diag(np.array([-1, -1, 1, 1], np.float32))
+    frames, annotations, hit_share, cast_s = [], [], [], 0.0
+    for k in range(n_cams):
+        a = 2 * np.pi * k / n_cams
+        pos = dist * np.array([np.cos(np.deg2rad(elev)) * np.cos(a),
+                               np.cos(np.deg2rad(elev)) * np.sin(a), np.sin(np.deg2rad(elev))])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        c2w = np.eye(4, dtype=np.float32)  # OPENCV: x right, y down, z forward
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, -np.cross(right, fwd), fwd, pos
+        rd = (dirs_cam @ c2w[:3, :3].T).reshape(-1, 3)
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        ro = np.broadcast_to(c2w[:3, 3], rd.shape)
+        t0 = time.time()
+        hits = bvh_lib.cast_rays_dense(bvh, torch.tensor(ro, dtype=torch.float32, device=device),
+                                       torch.tensor(rd, dtype=torch.float32, device=device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        cast_s += time.time() - t0
+        hit = hits["hit"].cpu().numpy()
+        face = np.clip(hits["face"].cpu().numpy(), 0, None)
+        nrm = n_face[face] * np.where((n_face[face] * rd).sum(-1, keepdims=True) > 0, -1, 1)
+        shade = 0.3 + 0.7 * np.clip((nrm * light).sum(-1, keepdims=True), 0, 1)
+        rgb = np.where(hit[:, None], np.asarray([0.85, 0.5, 0.3]) * band[face, None] * shade, 1.0)
+        depth = np.where(hit, hits["t"].cpu().numpy() * (rd @ fwd), 0.0).astype(np.float16)
+        hit_share.append(float(hit.mean()))
+        to8 = lambda x: (np.clip(x, 0, 1) * 255).round().astype(np.uint8)
+        name = f"frame{k:03d}.png"
+        img = Image.fromarray(to8(rgb).reshape(res, res, 3))
+        img.save(os.path.join(mv, "images", name))
+        img.save(os.path.join(seq, "images", name))
+        Image.fromarray(to8(hit.astype(np.float32)).reshape(res, res)).save(
+            os.path.join(seq, "masks", name))
+        Image.fromarray(np.frombuffer(depth.tobytes(), np.uint16).reshape(res, res)).save(
+            os.path.join(seq, "depths", name))
+        frames.append({"file_path": f"images/{name}", "transform_matrix": c2w.tolist(),
+                       "w": res, "h": res, "fl_x": fl, "fl_y": fl, "cx": res / 2,
+                       "cy": res / 2})
+        p3d = c2w @ cam_trans  # OpenCV -> PyTorch3D (cam_trans is its own inverse)
+        R = p3d[:3, :3]
+        rel = lambda s: f"torus/ring/{s}/{name}"
+        annotations.append({
+            "sequence_name": "ring", "frame_number": k, "meta": {"frame_type": "train"},
+            "image": {"path": rel("images"), "size": [res, res]}, "mask": {"path": rel("masks")},
+            "depth": {"path": rel("depths"), "scale_adjustment": 1.0},
+            "viewpoint": {"focal_length": [fl / (res / 2)] * 2, "principal_point": [0.0, 0.0],
+                          "R": R.tolist(), "T": (-np.linalg.inv(R) @ p3d[:3, 3]).tolist()}})
+    with open(os.path.join(mv, "transforms.json"), "w") as fh:
+        json.dump({"camera_model": "OPENCV", "frames": frames}, fh)
+    with gzip.open(os.path.join(co3d, "torus", "frame_annotations.jgz"), "wt") as fh:
+        json.dump(annotations, fh)
+    return {"multiview": mv, "co3d": seq, "res": res, "cameras": n_cams,
+            "triangles": len(f), "hit_share": float(np.mean(hit_share)), "cast_s": cast_s}
+
+
+def edit_argv(work: str, device: str, size: str, run: str, steps: int, capture: dict) -> list:
+    """``launch_torch.py --train`` of ``configs/dreamfusion.yaml`` as run
+    ``run`` of ``EDIT_RUNS``: random weights, the IP2P guidance and its
+    768-wide text tower (``model_size: ip2p``), ``steps`` steps with the
+    occupancy refresh every 2, 1 test view, the isosurface export at level
+    ``VOLUME_ISO_LEVEL``. Instruct-NeRF2NeRF on the multiview capture at a
+    quarter of its resolution (64^2 frames; the CPU's half: 16^2), an edit
+    from step 1 on; Control4D on the CO3D sequence at the datamodule's
+    defaults (256^2 frames), the hybrid RGB-latent material (3 + 8
+    channels) over a solid background, the GAN renderer, an edit every
+    step."""
+    tiny = size == "tiny"
+    argv = ["--config", "configs/dreamfusion.yaml", "--train", "--device", device,
+            "system.guidance_type=stable-diffusion-instructpix2pix-guidance",
+            f"system.guidance!={IP2P_BLOCK[size]}",
+            "system.prompt_processor!={model_size: %s, prompt: %s, use_cache: false}" % (
+                "tiny" if tiny else "ip2p", EDIT_PROMPT),
+            f"trainer.max_steps={steps}", "trainer.val_check_interval=0",
+            "checkpoint.every_n_train_steps=0", f"exp_root_dir={work}/runs_{run}",
+            "use_timestamp=false", "system.per_editing_step=1",
+            f"system.geometry.isosurface_threshold={VOLUME_ISO_LEVEL}"]
+    S, G = (32, 8) if tiny else (512, 32)
+    if run == "instructnerf2nerf":
+        argv += ["system_type=instructnerf2nerf-system",
+                 "data_type=multiview-camera-datamodule",
+                 "data!={dataroot: %s, train_downsample_resolution: %d, n_test_views: 1}" % (
+                     capture["multiview"], 2 if tiny else 4),
+                 "system.start_editing_step=0", IN2N_LOSS,
+                 "system.renderer.grid_update_every=2"]
+        if tiny:
+            argv += [f"system.renderer.num_samples_per_ray={S}",
+                     f"system.renderer.grid_resolution={G}", "system.renderer.eval_chunk_rays=256"]
+    else:
+        eval_hw = ", random_camera: {eval_height: 32, eval_width: 32}" if tiny else ""
+        argv += ["system_type=control4d-multiview-system", "data_type=co3d-datamodule",
+                 "data!={root_dir: %s, n_test_views: 1%s%s}" % (
+                     capture["co3d"], ", height: 32, width: 32" if tiny else "", eval_hw),
+                 "system.start_editing_step=-1", C4D_LOSS,
+                 "system.geometry.n_feature_dims=11",
+                 "system.material_type=hybrid-rgb-latent-material",
+                 "system.material!={n_output_dims: 11}",
+                 "system.background_type=solid-color-background",
+                 "system.background!={n_output_dims: 11}",
+                 "system.renderer_type=gan-volume-renderer",
+                 C4D_RENDERER % (S, G, ", eval_chunk_rays: 256" if tiny else "",
+                                 ", ch: 16, local_ch: 8, global_dim: 16, disc_ndf: 16"
+                                 if tiny else "")]
+    return argv + (EDIT_TINY if tiny else [])
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The diffusion models' attention through ``attention_plain`` inside:
+    the fp32 comparisons of main path 11 run the UNet in fp32, which kernel
+    A (bf16) does not take; kernel A is held against its plain version in
+    the kernel phase."""
+    from dreammat_tpu_torch.models.diffusion import layers
+    from dreammat_tpu_torch.ops.attention import attention_plain
+
+    real = layers.fused_attention
+    layers.fused_attention = attention_plain
+    try:
+        yield
+    finally:
+        layers.fused_attention = real
+
+
+def ip2p_eps_vs_cpu(guidance, prompt_utils, frame: torch.Tensor, seed: int = 0) -> dict:
+    """The guided eps of an edit's first DDIM step at full width in fp32: the
+    render's latent (``frame`` [1,H,W,3] resized to the guidance's size,
+    encoded with a drawn posterior sample) noised to t = 500, the condition
+    stack and the [pos, neg, neg] embeddings made by the run's guidance, then
+    ``eps3`` through fp32 copies of the run's UNet on the card and on the
+    CPU (attention plain in both). Max |diff| relative to max |eps|, at most
+    1e-3 (TF32 off)."""
+    import copy
+    from types import SimpleNamespace
+
+    from dreammat_tpu_torch.models.detectors import resize_linear
+    from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
+
+    g, dev = guidance, guidance.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = g.cfg.fixed_size
+    with torch.no_grad():
+        img = resize_linear(frame.permute(0, 3, 1, 2), (s, s))
+        lat_shape = (1, 4, s // g.vae_factor, s // g.vae_factor)
+        latents = g.encode_images(img, torch.randn(lat_shape, generator=gen, device=dev))
+        cond3 = g.cond_latents(img)
+        t = torch.full((1,), 500, dtype=torch.long, device=dev)
+        x = add_noise(g.schedule, latents, torch.randn(lat_shape, generator=gen, device=dev), t)
+        zero = torch.zeros(1, device=dev)
+        emb = prompt_utils.get_text_embeddings(zero, zero, zero, view_dependent_prompting=False,
+                                               return_null=False)
+        emb3 = torch.cat([emb, emb[1:]], dim=0)
+        unet = copy.deepcopy(g.unet).float()
+        eps = {}
+        with plain_attention():
+            eps["card"] = type(g).eps3(SimpleNamespace(unet=unet, cfg=g.cfg), x, cond3, t, emb3)
+            unet = unet.cpu()
+            cpu = lambda a: a.cpu()
+            eps["cpu"] = type(g).eps3(SimpleNamespace(unet=unet, cfg=g.cfg), cpu(x), cpu(cond3),
+                                      cpu(t), cpu(emb3))
+    err = (eps["card"].cpu() - eps["cpu"]).abs().max().item()
+    res = {"t": 500, "max_abs": eps["cpu"].abs().max().item(), "latent_hw": lat_shape[2]}
+    res["rel_err"] = err / res["max_abs"]
+    if not (math.isfinite(res["rel_err"]) and res["rel_err"] <= 1e-3):
+        raise AssertionError(f"path 11 IP2P eps, card against the CPU in fp32: {res}")
+    return res
+
+
+def perceptual_vs_cpu(system, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The perceptual distance of a frame pair ([1,H,W,3] each) through the
+    run's VGG16 tower on the card and a copy on the CPU, fp32: relative
+    difference at most 1e-4."""
+    import copy
+
+    from dreammat_tpu_torch.utils.perceptual import perceptual_distance
+
+    with torch.no_grad():
+        card = perceptual_distance(system.vgg, a, b).item()
+        cpu = perceptual_distance(copy.deepcopy(system.vgg).cpu(), a.cpu(), b.cpu()).item()
+    res = {"card": card, "cpu": cpu, "rel_err": abs(card - cpu) / max(abs(cpu), 1e-12),
+           "hw": list(a.shape[1:3])}
+    if not (math.isfinite(card) and res["rel_err"] <= 1e-4):
+        raise AssertionError(f"path 11 perceptual distance, card against the CPU: {res}")
+    return res
+
+
+def gan_render_vs_cpu(system, dm, cfg, n_rays: int = 2048) -> dict:
+    """The GAN render of a 32 x 64 window (``n_rays`` rays) in the middle of
+    eval view 0, by the trained scene and networks on the card and, from a
+    copy, by the same system built on the CPU: max |diff| of the GAN image,
+    the low-resolution image (upsampled) and the base opacity, at most 2e-3."""
+    import copy
+
+    import dreammat_tpu_torch
+
+    batch = dm.eval_rays(0)
+    H, W = batch["rays_o"].shape[:2]
+    h, w = 32, n_rays // 32
+    win = lambda x: x[H // 2 - h // 2:H // 2 + h // 2, W // 2 - w // 2:W // 2 + w // 2]
+    ro, rd = win(batch["rays_o"]).reshape(-1, 3), win(batch["rays_d"]).reshape(-1, 3)
+    lp = batch["light_position"].reshape(1, 3).expand_as(ro)
+    cpu_sys = dreammat_tpu_torch.find(cfg.system_type)(cfg.system, device="cpu")
+    field = copy.deepcopy(system.field).cpu()
+    step = system.global_step
+    with torch.no_grad():
+        f = system.field
+        card = system.renderer.render_rays(f.geo, f.bg, f.occ, ro, rd, lp, None, step=step,
+                                           gan_nets=f.gan, height=h, width=w)
+        cpu = cpu_sys.renderer.render_rays(field.geo, field.bg, field.occ, ro.cpu(), rd.cpu(),
+                                           lp.cpu(), None, step=step, gan_nets=field.gan,
+                                           height=h, width=w)
+    res = {"rays": ro.shape[0], "hit_share": float((cpu["opacity"] > 0.5).float().mean())}
+    for key in ("comp_gan_rgb", "comp_rgb", "opacity"):
+        res[key] = (card[key].cpu() - cpu[key]).abs().max().item()
+    if not max(res["comp_gan_rgb"], res["comp_rgb"], res["opacity"]) <= 2e-3:
+        raise AssertionError(f"path 11 GAN render, card against the CPU: {res}")
+    return res
+
+
+def ip2p_sds_phase(device: str, size: str, steps: int, prompt_utils, frame: torch.Tensor,
+                   seed: int = 0) -> dict:
+    """The IP2P guidance alone in ``use_sds`` mode (at full width, bf16):
+    ``steps`` AdamW steps (lr 0.01) of a 512^2 image (the CPU: 32^2) from
+    the capture's frame, conditioned on that frame. Checks finite losses,
+    the image moved, and on the card kernel A exactly ``IP2P_SDS_PER_STEP``
+    a step, C and D none. Returns the step seconds, losses and launches."""
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch.models.detectors import resize_linear
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.utils.rng import TorchDraws
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    block = {"model_size": "tiny", "half_precision_weights": False} if size == "tiny" else \
+        {"model_size": "ip2p", "half_precision_weights": True}
+    guidance = dreammat_tpu_torch.find("stable-diffusion-instructpix2pix-guidance")(
+        {**block, "use_sds": True, "cache_dir": None}, device=device)
+    guidance.init_params(torch.Generator(device=device).manual_seed(seed + 11))
+    side = 32 if size == "tiny" else 512
+    cond = resize_linear(frame.permute(0, 3, 1, 2), (side, side)).permute(0, 2, 3, 1)
+    img = cond.clone().requires_grad_()
+    opt = torch.optim.AdamW([img], lr=0.01)
+    draws = TorchDraws(seed + 12, device)
+    kernels = (attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv)
+    for fn in kernels:
+        fn.launches = 0
+    losses, step_s = [], []
+    with AttentionBatches() as batches:
+        for it in range(steps):
+            t0 = time.time()
+            opt.zero_grad(set_to_none=True)
+            out = guidance(img, cond, prompt_utils, step=it, draws=draws)
+            out["loss_sds"].backward()
+            opt.step()
+            sync()
+            step_s.append(time.time() - t0)
+            losses.append(out["loss_sds"].item())
+    res = {"hw": [side, side], "steps": steps, "step_s": step_s, "losses": losses,
+           "image_moved": (img.detach() - cond).abs().max().item(),
+           "flash_attn_fwd_by_batch": dict(batches.counts),
+           "launches": {"flash_attn_fwd": sum(batches.counts.values()),
+                        "flash_attn_bwd_dq": kernels[0].launches,
+                        "flash_attn_bwd_dkv": kernels[1].launches}}
+    if not (all(math.isfinite(x) for x in losses) and res["image_moved"] > 0):
+        raise AssertionError(f"path 11 ip2p-sds: {res}")
+    want = {b: n * steps for b, n in IP2P_SDS_PER_STEP.items()}
+    if cuda and (res["flash_attn_fwd_by_batch"] != want or kernels[0].launches
+                 or kernels[1].launches):
+        raise AssertionError(f"path 11 ip2p-sds: kernel A by batch "
+                             f"{res['flash_attn_fwd_by_batch']} (expected {want}), "
+                             f"launches {res['launches']}")
+    log(f"edit ip2p-sds ({side}^2 image, AdamW): steps "
+        f"{', '.join(f'{x:.4f}s' for x in step_s)}; kernel A by batch "
+        f"{res['flash_attn_fwd_by_batch']}, C {kernels[0].launches}, D {kernels[1].launches}; "
+        f"losses {', '.join(f'{x:.6g}' for x in losses)}; image moved {res['image_moved']:.4g}")
+    del guidance
+    return res
+
+
+def drive_edit(work: str, device: str = "cuda", size: str = "sd21") -> dict:
+    """Main path 11, the editing family: the capture (``write_capture``,
+    kernel B on the card), then ``launch_torch.main`` of each run of
+    ``EDIT_RUNS`` (``edit_argv``): Instruct-NeRF2NeRF, 3 steps, and
+    Control4D, 6 steps, at full width with random weights; then the
+    ``ip2p-sds`` phase (``ip2p_sds_phase``, 3 steps). Per run: finite losses
+    and parameters, the field (and Control4D's four networks) moved by
+    checksums, the frames whose targets an edit replaced, the test PNG; for
+    Control4D the generator levels drawn, each of 0, 1 and 2 at least once.
+    On the card also kernel A exactly ``EDIT_PER_EDIT`` an edit and nothing
+    at another batch, C, D and B none in the runs; 2048 eval rays card
+    against CPU within 2e-3 (``volume_render_vs_cpu``,
+    ``gan_render_vs_cpu``); for Instruct-NeRF2NeRF the perceptual distance
+    of a frame and its edit (``perceptual_vs_cpu``) and the first DDIM
+    step's eps (``ip2p_eps_vs_cpu``) card against CPU in fp32. Each run's
+    first and warm step, edit seconds, peak memory and test-view seconds.
+    Returns the numbers; raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work, exist_ok=True)
+    bvh_lib.cast_rays_dense.launches = 0
+    capture = write_capture(work, size, device)
+    capture["ray_cast_launches"] = bvh_lib.cast_rays_dense.launches
+    if not 0.05 < capture["hit_share"] < 0.9:
+        raise AssertionError(f"path 11 capture: {capture}")
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv,
+                "ray_cast": bvh_lib.cast_rays_dense}
+    out_res = {"capture": capture, "runs": {}}
+    prompt_utils = frame = None
+    for run in EDIT_RUNS:
+        steps = EDIT_STEPS[run]
+        for fn in counters.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with AttentionBatches() as batches:
+            out = launch_torch.main(edit_argv(work, device, size, run, steps, capture))
+        sync()
+        system, trial, cfg, dm = out["system"], out["trial_dir"], out["cfg"], out["datamodule"]
+        step_s = list(system.step_seconds)
+        field = system.field
+        first = dict(field.named_parameters())
+        r = {"seconds": time.time() - t0, "system": type(system).__name__,
+             "renderer": type(system.renderer).__name__,
+             "render_hw": [dm.H, dm.W] if hasattr(dm, "H") else [dm.cfg.height, dm.cfg.width],
+             "launches": {k: fn.launches for k, fn in counters.items()},
+             "flash_attn_fwd_by_batch": dict(batches.counts), "edits": len(system.edit_seconds),
+             "edit_s": list(system.edit_seconds), "edited_frames": sorted(system.edit_frames),
+             "step_s": step_s, "first_step_s": step_s[0],
+             "warm_step_s": float(np.mean(step_s[1:] or step_s)),
+             "test_s": list(system.test_seconds), "losses": list(system.step_losses),
+             "step_peak_gb": list(system.step_peak_gb),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+        if getattr(system, "levels", None) is not None:
+            r["levels"] = list(system.levels)
+        if len(r["losses"]) != steps or not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"path 11 {run}: losses {r['losses']}")
+        if not all(torch.isfinite(p).all() for p in first.values()):
+            raise AssertionError(f"path 11 {run}: a parameter is not finite")
+        if r["edits"] != steps - (run == "instructnerf2nerf") or not r["edited_frames"]:
+            raise AssertionError(f"path 11 {run}: {r['edits']} edits, frames "
+                                 f"{r['edited_frames']}")
+        # the scene and each network moved from a fresh init with the run's seed
+        system.init_state(cfg.seed)
+        r["moved"] = {}
+        for name, p in system.field.named_parameters():
+            part = ".".join(name.split(".")[:2 if name.startswith("gan.") else 1])
+            if tensor_checksum(p) != tensor_checksum(first[name]):
+                r["moved"][part] = r["moved"].get(part, 0) + 1
+        system.field = field
+        want_parts = {"geo"} | ({"gan.generator", "gan.global_encoder", "gan.discriminator"}
+                                if run == "control4d" else set())
+        if not want_parts <= set(r["moved"]):
+            raise AssertionError(f"path 11 {run}: moved tensors by part {r['moved']}")
+        if run == "control4d" and set(r["levels"]) != {0, 1, 2}:
+            raise AssertionError(f"path 11 control4d: generator levels {r['levels']}")
+        r["test_png"] = check_file(os.path.join(trial, "save", f"it{steps}-test", "0.png"),
+                                   b"\x89PNG\r\n\x1a\n", 100)
+        if cuda:
+            want = {b: n * r["edits"] for b, n in EDIT_PER_EDIT.items()}
+            if (r["flash_attn_fwd_by_batch"] != want or r["launches"]["ray_cast"]
+                    or r["launches"]["flash_attn_bwd_dq"] or r["launches"]["flash_attn_bwd_dkv"]):
+                raise AssertionError(f"path 11 {run}: kernel A by batch "
+                                     f"{r['flash_attn_fwd_by_batch']} (expected {want}), "
+                                     f"launches {r['launches']}")
+            if run == "instructnerf2nerf":
+                r["render_vs_cpu"] = volume_render_vs_cpu(system, dm, cfg)
+                idx = r["edited_frames"][0]
+                a = dm.imgs[idx][None]
+                r["perceptual_vs_cpu"] = perceptual_vs_cpu(system, a,
+                                                           system.edit_frames[idx][None])
+                r["eps_vs_cpu"] = ip2p_eps_vs_cpu(system.guidance, system.prompt_utils, a)
+            else:
+                r["render_vs_cpu"] = gan_render_vs_cpu(system, dm, cfg)
+        log(f"edit {run} ({r['system']}, {r['renderer']}, {r['render_hw'][0]}^2 frames): "
+            f"launch_torch.py --train in {r['seconds']:.1f}s; kernel A by batch "
+            f"{r['flash_attn_fwd_by_batch']}, launches {r['launches']}; steps "
+            f"{', '.join(f'{x:.4f}s' for x in step_s)} (first {r['first_step_s']:.4f}s, warm "
+            f"{r['warm_step_s']:.4f}s); {r['edits']} edits of frames {r['edited_frames']} "
+            f"({', '.join(f'{x:.3f}s' for x in r['edit_s'])}); peak "
+            f"{', '.join(f'{x:.2f} GB' for x in r['step_peak_gb'])} (run {r['peak_gb'] or 0:.2f}"
+            f" GB); test view {', '.join(f'{x:.3f}s' for x in r['test_s'])}; moved tensors "
+            f"{r['moved']}; losses {', '.join(f'{x:.6g}' for x in r['losses'])}"
+            + (f"; generator levels {r['levels']}" if "levels" in r else "")
+            + (f"; card vs CPU: render {r['render_vs_cpu']}" if "render_vs_cpu" in r else "")
+            + (f", perceptual {r['perceptual_vs_cpu']}, first DDIM eps (fp32) "
+               f"{r['eps_vs_cpu']}" if "eps_vs_cpu" in r else ""))
+        out_res["runs"][run] = r
+        if run == "instructnerf2nerf":
+            prompt_utils = system.prompt_utils
+            frame = dm.imgs[0][None]
+        del out, system, field, first, dm
+        if cuda:
+            torch.cuda.empty_cache()
+    out_res["ip2p_sds"] = ip2p_sds_phase(device, size, 3, prompt_utils, frame)
+    return out_res
+
+
+def phase_edit() -> dict:
+    """Main path 11 on the card (``drive_edit`` at full width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_edit")
+    res = drive_edit(work)
+    keys = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv", "ray_cast")
+    res["counts"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                     + res["ip2p_sds"]["launches"].get(k, 0) for k in keys}
+    res["counts"]["ray_cast"] += res["capture"]["ray_cast_launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3699,8 +4223,9 @@ def main() -> int:
                 "ray_cast": None}
     r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
-    rest_res = single_res = None
+    rest_res = single_res = edit_res = None
     s_counts = dict(d_counts)
+    e_counts = dict(d_counts)
     if not args.kernels_only:
         main_res = timed("main", phase_main, args.steps, args.views, args.out)
         counts = main_res["counts"]
@@ -3723,6 +4248,8 @@ def main() -> int:
         r_counts = rest_res["counts"]
         single_res = timed("single_image", phase_single_image)
         s_counts = single_res["counts"]
+        edit_res = timed("edit", phase_edit)
+        e_counts = edit_res["counts"]
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -3761,7 +4288,12 @@ def main() -> int:
                                   **{run: r["flash_attn_fwd_by_batch"]
                                      for run, r in single_res["runs"].items()},
                                   "zero123_vsd":
-                                      single_res["zero123_vsd"]["flash_attn_fwd_by_batch"]}},
+                                      single_res["zero123_vsd"]["flash_attn_fwd_by_batch"]},
+                              "edit": e_counts["flash_attn_fwd"],
+                              "edit_by_run_and_batch": edit_res and {
+                                  **{run: r["flash_attn_fwd_by_batch"]
+                                     for run, r in edit_res["runs"].items()},
+                                  "ip2p_sds": edit_res["ip2p_sds"]["flash_attn_fwd_by_batch"]}},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
@@ -3788,7 +4320,8 @@ def main() -> int:
                               "volume": v_counts["flash_attn_bwd_dq"],
                               "dmtet": d_counts["flash_attn_bwd_dq"],
                               "volume_rest": r_counts["flash_attn_bwd_dq"],
-                              "single_image": s_counts["flash_attn_bwd_dq"]},
+                              "single_image": s_counts["flash_attn_bwd_dq"],
+                              "edit": e_counts["flash_attn_bwd_dq"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
                             for r in res["rows"]),
@@ -3805,7 +4338,8 @@ def main() -> int:
                               "volume": v_counts["flash_attn_bwd_dkv"],
                               "dmtet": d_counts["flash_attn_bwd_dkv"],
                               "volume_rest": r_counts["flash_attn_bwd_dkv"],
-                              "single_image": s_counts["flash_attn_bwd_dkv"]},
+                              "single_image": s_counts["flash_attn_bwd_dkv"],
+                              "edit": e_counts["flash_attn_bwd_dkv"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
@@ -3838,7 +4372,8 @@ def main() -> int:
                               "single_image": s_counts["ray_cast"],
                               "single_image_by_run": single_res and {
                                   run: r["launches"]["ray_cast"]
-                                  for run, r in single_res["runs"].items()}},
+                                  for run, r in single_res["runs"].items()},
+                              "edit_capture": e_counts["ray_cast"]},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff",
                                         "pairs_morton", "bound_tested_ms", "bound_morton_ms")
@@ -3861,7 +4396,7 @@ def main() -> int:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
                    "volume": vol_res, "dmtet": dmtet_res, "volume_rest": rest_res,
-                   "single_image": single_res,
+                   "single_image": single_res, "edit": edit_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,

@@ -4,6 +4,12 @@ Counterpart of ``dreammat_tpu/models/diffusion/clip_text.py``: token +
 position embeddings, pre-LN causal transformer, final LayerNorm, with
 ``transformers.CLIPTextModel`` key names. The causal attention is plain
 matmul + masked softmax (kernel A is non-causal).
+
+``CLIPTextConfig.ip2p()`` is the text tower InstructPix2Pix ships
+(``timbrooks/instruct-pix2pix``, SD 1.5's OpenAI CLIP ViT-L/14: 768 wide,
+12 layers, quick-GELU MLPs), the width of the IP2P UNet's cross-attention.
+The JAX package has no such config: its prompt processor gives SD 2.1's
+1024-wide embeddings to the 768-wide IP2P UNet (ROADMAP, queue 3).
 """
 
 from __future__ import annotations
@@ -24,10 +30,16 @@ class CLIPTextConfig:
     num_layers: int = 23
     num_heads: int = 16
     max_length: int = 77
+    hidden_act: str = "gelu"  # "gelu" | "quick_gelu"
 
     @staticmethod
     def sd21() -> "CLIPTextConfig":
         return CLIPTextConfig()
+
+    @staticmethod
+    def ip2p() -> "CLIPTextConfig":
+        return CLIPTextConfig(hidden_size=768, intermediate_size=3072, num_layers=12,
+                              num_heads=12, hidden_act="quick_gelu")
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
@@ -64,9 +76,11 @@ class _MLP(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(c.hidden_size, c.intermediate_size)
         self.fc2 = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.quick = c.hidden_act == "quick_gelu"
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        h = self.fc1(x)
+        return self.fc2(h * torch.sigmoid(1.702 * h) if self.quick else F.gelu(h))
 
 
 class _Layer(nn.Module):

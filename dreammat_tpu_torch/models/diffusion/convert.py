@@ -22,8 +22,11 @@ flax direction's fallbacks: old VAE attention names, CLIP's bare
 volume, the DMTet grid and the backgrounds (``volume_scene_from_numpy``
 for a volume or mesh system's whole scene), ``lora_state_from_numpy`` and
 ``lora_layers_from_numpy`` for the VSD guidance's LoRA factors and camera
-embedding, and ``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
-JAX package's ``bert_params_from_torch``).
+embedding, ``bert_state_dict_from_flax`` for the debiasing BERT (the inverse of the
+JAX package's ``bert_params_from_torch``), ``vgg16_state_dict_from_flax``
+for the perceptual tower and ``gan_state_dict_from_flax`` for Control4D's
+four GAN networks. The IP2P UNet (8-channel ``conv_in``, 768-wide
+``attn2``) goes through ``flax_to_torch_state_dict(..., "unet")``.
 """
 
 from __future__ import annotations
@@ -383,6 +386,65 @@ def bert_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         sd.update(norm(b + "attention.output.LayerNorm", lp["attn_ln"]))
         sd.update(norm(b + "output.LayerNorm", lp["out_ln"]))
         i += 1
+    return sd
+
+
+# torchvision's vgg16().features index of each of the 13 convs
+_VGG16_FEATURES_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def vgg16_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX perceptual tower ``{"w": [HWIO] * 13, "b": [[C]] * 13}``
+    (numpy) -> the state dict of the port's ``VGG16Features``
+    (torchvision's ``features.N`` keys)."""
+    t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+    sd = {}
+    for i, idx in enumerate(_VGG16_FEATURES_IDX):
+        sd[f"features.{idx}.weight"] = t(np.transpose(np.asarray(params["w"][i]), (3, 2, 0, 1)))
+        sd[f"features.{idx}.bias"] = t(params["b"][i])
+    return sd
+
+
+def _gan_module_name(kind: str, name: str, n_levels: int) -> str:
+    """A flax auto-name (``Conv_2``, ``ResBlock_1``, ...) of one of the JAX
+    GAN networks -> the port module's attribute path (``utils/gan.py``)."""
+    typ, i = name.rsplit("_", 1)
+    i = int(i)
+    if typ == "ResBlock":
+        return "mid" if kind == "local_encoder" and i == n_levels else f"blocks.{i}"
+    if kind in ("generator", "local_encoder") and typ == "Conv":
+        inner = "ups" if kind == "generator" else "downs"
+        return "conv_in" if i == 0 else "conv_out" if i == n_levels else f"{inner}.{i - 1}"
+    if kind == "generator":
+        return {"Dense_0": "film_scale", "Dense_1": "film_shift", "GroupNorm_0": "norm_out"}[name]
+    if kind == "global_encoder":
+        return f"convs.{i}" if typ == "Conv" else "fc"
+    if kind == "discriminator":
+        if typ == "GroupNorm":
+            return f"norms.{i}"
+        return "conv_in" if i == 0 else "conv_out" if i == n_levels + 1 else f"convs.{i - 1}"
+    raise KeyError(f"unmapped {kind} module {name}")
+
+
+_RESBLOCK_PARTS = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "GroupNorm_1": "norm2",
+                   "Conv_1": "conv2", "Conv_2": "skip"}
+
+
+def gan_state_dict_from_flax(params: Mapping, kind: str, n_levels: int) -> Dict[str, torch.Tensor]:
+    """One of the JAX Control4D networks' flax trees (numpy, with or without
+    the top ``params`` level) -> the state dict of the port's module:
+    ``kind`` is ``generator``, ``local_encoder``, ``global_encoder`` or
+    ``discriminator``; ``n_levels`` is ``len(ch_mult)`` (the
+    discriminator's ``n_layers``)."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    for path, leaf in _walk(p):
+        mods = [_gan_module_name(kind, path[0], n_levels)]
+        if path[0].startswith("ResBlock"):
+            mods.append(_RESBLOCK_PARTS[path[1]])
+        key = ".".join(mods) + "." + ("bias" if path[-1] == "bias" else "weight")
+        sd[key] = torch.from_numpy(np.array(_to_torch_array(path[-1], np.asarray(
+            leaf, dtype=np.float32))))
     return sd
 
 

@@ -13,12 +13,12 @@ UNet pass under ``torch.no_grad()`` (the JAX stop-gradient): three (text,
 uncond, null), or with Perp-Neg five (text, uncond, two interpolated
 negatives interleaved per sample, null), where ``eps_perpneg`` sums the
 negatives' components perpendicular to ``eps_text - eps_uncond``, weighted
-per view. The latents are replicated in blocks of B as in the JAX package
-and the reference, so at B > 1 a negative row runs on another sample's
-latent (DreamMat trains at B = 1; ROADMAP, queue 3; the SD and DeepFloyd
-guidances give each row its own sample, ``perp_neg_rows``). The condition stack stays
-batch 1, so the ControlNet's image-resolution stem runs once for all
-replicas.
+per view. Each row runs on its own sample's latent (``perp_neg_rows``); the
+JAX package and the reference replicate the latents in blocks of B, so
+there at B > 1 a negative row runs on another sample's latent (ROADMAP,
+queue 3; DreamMat trains at B = 1, where the two agree). The condition
+stack stays batch 1, so the ControlNet's image-resolution stem runs once
+for all replicas.
 
 Weights: random-initialized, then the UNet and the VAE are loaded from
 ``cache_dir/{unet,vae}`` (diffusers layout, ``strict=False`` through
@@ -264,14 +264,13 @@ class StableDiffusionLightGuidance(BaseObject):
                 elevation, azimuth, camera_distances)
             with torch.no_grad():
                 eps = self.noise_pred(latents_noisy.detach(), t, text_embeddings, image_cond,
-                                      scales, 5)
+                                      scales, 5, rows=perp_neg_rows(B, True, t.device))
             eps_text, eps_uncond = eps[:B], eps[B:2 * B]
             eps_neg, eps_null = eps[2 * B:4 * B], eps[4 * B:]
             e_pos = eps_text - eps_uncond
             eps_perpneg = torch.zeros_like(e_pos)
             for i in range(2):
-                # the negatives are interleaved per sample: [n0(b0), n1(b0), n0(b1), ...];
-                # the latents replicated in blocks, as the JAX package and the reference do
+                # the negatives are interleaved per sample: [n0(b0), n1(b0), n0(b1), ...]
                 eps_perpneg = eps_perpneg + neg_w[:, i].reshape(-1, 1, 1, 1) * \
                     perpendicular_component(eps_neg[i::2] - eps_uncond, e_pos)
         else:

@@ -10,10 +10,15 @@ the md5-keyed on-disk embedding cache: one ``<md5>.npy`` of float32 [N, D]
 per prompt under ``cache_dir``, with the JAX package's key, so the two
 packages share one cache directory. With ``use_prompt_debiasing`` the
 four direction prompts are formatted from the BERT-PMI debiased prompts
-(``models/debias.py``; BERT-base for ``model_size: sd21``, tiny otherwise,
+(``models/debias.py``; BERT-base at full width, tiny otherwise,
 from ``pretrained_model_name_or_path_prompt_debiasing`` where it holds a
 checkpoint, random weights otherwise); manual view prompts are refused
 then.
+
+``model_size`` picks the text tower: ``sd21`` (OpenCLIP ViT-H, 1024 wide),
+``ip2p`` (InstructPix2Pix's ViT-L/14, 768 wide, which the IP2P guidance's
+UNet attends to) or ``tiny``. The ``ip2p`` cache key names the width too:
+the JAX package's ``ip2p`` embeddings are its tiny tower's.
 """
 
 from __future__ import annotations
@@ -184,7 +189,8 @@ class StableDiffusionPromptProcessor(BaseObject):
 
             mlm_fn, tok, _ = build_bert_mlm(
                 cfg.pretrained_model_name_or_path_prompt_debiasing,
-                size="base" if cfg.model_size == "sd21" else "tiny", device=self.device)
+                size="tiny" if self.clip_config() == CLIPTextConfig.tiny() else "base",
+                device=self.device)
             self.debiased = get_debiased_prompt(self.prompt, mlm_fn, tok,
                                                 mask_ids=cfg.prompt_debiasing_mask_ids)
             self.prompts_vd = [f.format(p) for f, p in zip(fmt, self.debiased)]
@@ -198,11 +204,16 @@ class StableDiffusionPromptProcessor(BaseObject):
         self.cache_hits = 0
         self._emb: Optional[PromptEmbeddings] = None
 
+    def clip_config(self) -> CLIPTextConfig:
+        """The text tower of ``model_size`` (any other value: tiny)."""
+        return {"sd21": CLIPTextConfig.sd21, "ip2p": CLIPTextConfig.ip2p}.get(
+            self.cfg.model_size, CLIPTextConfig.tiny)()
+
     def get_encoder(self, generator: Optional[torch.Generator] = None):
         """(model, tokenizer); on first use the model is random-initialized,
         then loaded from ``pretrained_model_cache_dir/text_encoder`` where
         that holds a checkpoint."""
-        ccfg = CLIPTextConfig.sd21() if self.cfg.model_size == "sd21" else CLIPTextConfig.tiny()
+        ccfg = self.clip_config()
         if self.text_encoder is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
@@ -218,7 +229,12 @@ class StableDiffusionPromptProcessor(BaseObject):
         return self.text_encoder, tok
 
     def _cache_key(self, prompt: str) -> str:
-        ident = f"{self.cfg.pretrained_model_name_or_path}-{self.cfg.model_size}-{prompt}"
+        """The JAX package's key; ``ip2p`` names its width as well, since the
+        JAX package's ``ip2p`` is its tiny tower and writes 64-wide files."""
+        size = self.cfg.model_size
+        if size == "ip2p":
+            size = f"{size}{self.clip_config().hidden_size}"
+        ident = f"{self.cfg.pretrained_model_name_or_path}-{size}-{prompt}"
         return hashlib.md5(ident.encode()).hexdigest()
 
     def encode_prompts(self, prompts: List[str]) -> torch.Tensor:

@@ -24,6 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import playground_2d_torch
 import webapp_torch
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_playground_tiny_on_cpu(tmp_path, monkeypatch):

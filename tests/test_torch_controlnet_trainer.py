@@ -27,8 +27,11 @@ from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition
 from dreammat_tpu_torch.systems.controlnet_trainer import ControlNetTrainer, controlnet_from_unet
 from dreammat_tpu_torch.utils.ckpt import load_checkpoint
+from torch_threads import one_thread  # noqa: F401
 
 RES, B = 16, 2
+
+
 CFG = {"model_size": "tiny", "resolution": RES, "train_batch_size": B, "num_train_epochs": 1,
        "checkpointing_steps": 0, "learning_rate": 1e-4}
 PROMPTS = ["a red apple", ""]
@@ -78,13 +81,20 @@ def jtrainer(J):
 def jparams(J, jtrainer):
     """The JAX trainer's init_params (after from_unet), the ControlNet as
     flax initialized it before from_unet, and the perturbed ControlNet."""
+    import flax.linen as nn
+
     jax, jnp = J.jax, J.jnp
-    params = _np(jtrainer.init_params(jax.random.PRNGKey(0)))
-    k4 = jax.random.split(jax.random.PRNGKey(0), 4)[3]
-    lat = RES // jtrainer.vae_factor
-    ctx = jnp.zeros((1, jtrainer.clip_cfg.max_length, jtrainer.unet_cfg.cross_attention_dim))
-    raw = _np(jtrainer.controlnet.init(k4, jnp.zeros((1, lat, lat, 4)), jnp.zeros((1,)), ctx,
-                                       jnp.zeros((1, 2 * lat, 2 * lat, 22))))
+    init = nn.Module.init
+    with pytest.MonkeyPatch.context() as mp:
+        # each flax init jitted: the same draws, one compile instead of one per op
+        mp.setattr(nn.Module, "init", lambda self, rng, *a: jax.jit(
+            lambda r, *x: init(self, r, *x))(rng, *a))
+        params = _np(jtrainer.init_params(jax.random.PRNGKey(0)))
+        k4 = jax.random.split(jax.random.PRNGKey(0), 4)[3]
+        lat = RES // jtrainer.vae_factor
+        ctx = jnp.zeros((1, jtrainer.clip_cfg.max_length, jtrainer.unet_cfg.cross_attention_dim))
+        raw = _np(jtrainer.controlnet.init(k4, jnp.zeros((1, lat, lat, 4)), jnp.zeros((1,)),
+                                           ctx, jnp.zeros((1, 2 * lat, 2 * lat, 22))))
     rng = np.random.RandomState(7)
 
     def perturb(tree):

@@ -32,9 +32,7 @@ from dreammat_tpu_torch.models import debias as tdebias
 from dreammat_tpu_torch.models.diffusion import bert as tbert
 from dreammat_tpu_torch.models.diffusion.convert import bert_state_dict_from_flax
 from dreammat_tpu_torch.models.diffusion.wordpiece import WordPieceTokenizer as TTok
-from test_torch_fastpath import one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_thread")
+from torch_threads import one_thread  # noqa: F401
 
 PROMPTS = ["a red apple", "A wooden chair, front-facing and worn", "Crème brûlée in a [MASK] dish",
            "the back of a vintage leather armchair", "an overhead lamp"]

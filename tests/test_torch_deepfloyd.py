@@ -53,9 +53,10 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import _csv_losses, _np, _rel
 from test_torch_latentnerf import _cached_random_init
 from test_torch_zero123 import numpy_params, write_inputs
-from test_torch_volume import (  # noqa: F401  (one_thread: a module fixture)
-    SEED, GivenDraws, _close, _given_prompt_embeddings, _render_draws, one_thread,
+from test_torch_volume import (
+    SEED, GivenDraws, _close, _given_prompt_embeddings, _render_draws,
 )
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-4
 nchw = lambda x: np.ascontiguousarray(np.moveaxis(np.asarray(x), -1, 1))

@@ -36,14 +36,7 @@ import torch.nn.functional as F
 from dreammat_tpu.models import detectors as jdet
 from dreammat_tpu.models import guidance_triple as jtriple
 from dreammat_tpu_torch.models import detectors as tdet
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _nchw(x):

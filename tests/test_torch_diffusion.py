@@ -26,8 +26,11 @@ from dreammat_tpu_torch.models.diffusion.clip_text import CLIPTextConfig, CLIPTe
 from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNetConfig
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
+from torch_threads import one_thread  # noqa: F401
 
 B, h, w = 3, 8, 8
+
+
 TOL = 1e-4
 
 

@@ -51,6 +51,7 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses
 from test_torch_volume import GivenDraws, volume_pair
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 0
 PROMPT = ["system.prompt_processor.prompt=a stone hamburger",
@@ -98,14 +99,6 @@ RUNS = {
         "system.stage=texture", DMTET_GEOMETRY, RASTERIZER, "system.geometry.fix_geometry=true",
         "system.loss.lambda_sds=0.0"]),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def dmtet_draws(jsys, n_steps, lat_hw, vsd=False):

@@ -46,6 +46,8 @@ from dreammat_tpu_torch.models.diffusion.convert import (
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
+from torch_threads import one_thread  # noqa: F401
+
 
 SEED = 0
 OVERRIDES = [

@@ -43,6 +43,8 @@ from dreammat_tpu_torch.models import exporter as texp
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
 from dreammat_tpu_torch.utils import saving
+from torch_threads import one_thread  # noqa: F401
+
 
 GEO_CFG = {"shape_init_params": 0.8, "pos_encoding_config": {
     "otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2, "log2_hashmap_size": 10,

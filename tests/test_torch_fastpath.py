@@ -10,6 +10,9 @@ package's weights W handed to the port as the draw ``gate_w``). The gate's
 decisions are those of the JAX package's ``tests/test_data.py``,
 and after a drop a train step shades through the MC estimator.
 
+The JAX gate's MC estimator and its gradients run jitted (eagerly, op by
+op, they take half a minute of XLA compiles).
+
 The decision cases share one sphere rig (geometry, material with its FG
 LUT, renderer with its visibility bake) and set up a data module of their
 own on it; the gate restores the material's visibility source. The tests
@@ -34,6 +37,7 @@ from dreammat_tpu_torch.data import prerender as tpr
 from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
+from torch_threads import one_thread  # noqa: F401
 
 
 def setup_pair(tmp_path_factory, extra=()):
@@ -64,16 +68,6 @@ def setup_pair(tmp_path_factory, extra=()):
 
 
 @pytest.fixture(scope="module")
-def one_thread():
-    """One intra-op thread for the module's tests (other test files use it
-    too): several pytest workers may share the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
 def pair(tmp_path_factory):
     return setup_pair(tmp_path_factory)
 
@@ -90,12 +84,19 @@ class GivenDraws:
 
 def test_gate_measures_match_jax(pair):
     jsys, jdm, tsys, tdm = pair
-    rmse_j = jpr.fastpath_residual(jsys.renderer, jsys.material, jdm.data)
+    # the JAX gate runs eagerly, op by op (hundreds of XLA compiles): its MC
+    # estimator and its gradients run jitted here, the same functions
+    mat_cls, grad = type(jsys.material), jax.grad
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mat_cls, "shade_raytracing", jax.jit(
+            mat_cls.shade_raytracing, static_argnums=(0, 9)))
+        mp.setattr(jax, "grad", lambda f, *a, **k: jax.jit(grad(f, *a, **k)))
+        rmse_j = jpr.fastpath_residual(jsys.renderer, jsys.material, jdm.data)
+        gc_j = jpr.fastpath_grad_cos(jsys.renderer, jsys.material, jdm.data)
     rmse_t = tpr.fastpath_residual(tsys.renderer, tsys.material, tdm.data)
     assert abs(rmse_t - rmse_j) <= 1e-3, (rmse_t, rmse_j)
     GP = min(4096, tdm.data.gbuffers[0].fg_pos.shape[0])
     W = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (GP, 3)))
-    gc_j = jpr.fastpath_grad_cos(jsys.renderer, jsys.material, jdm.data)
     gc_t = tpr.fastpath_grad_cos(tsys.renderer, tsys.material, tdm.data,
                                  draws=GivenDraws({"gate_w": W}))
     assert abs(gc_t - gc_j) <= 1e-3, (gc_t, gc_j)
@@ -103,7 +104,7 @@ def test_gate_measures_match_jax(pair):
 
 
 @pytest.fixture(scope="module")
-def sphere_parts(one_thread):
+def sphere_parts():
     """A level-1 icosphere with a tiny field and material and the renderer
     on them (the rig of the JAX package's gate tests)."""
     find = dreammat_tpu_torch.find
@@ -145,7 +146,7 @@ def test_gate_decisions(sphere_parts, over, kept):
     assert ran == (over["fastpath_check"] is True or over.get("fastpath_occlusion_threshold") == 0)
 
 
-def test_after_a_drop_training_shades_through_mc(one_thread, tmp_path):
+def test_after_a_drop_training_shades_through_mc(tmp_path):
     cfg = tload("configs/dreammat_tiny.yaml", [
         "system.prompt_processor.prompt=a red apple",
         "system.geometry.shape_init=procedural:sphere",

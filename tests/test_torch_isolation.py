@@ -73,15 +73,22 @@ def _tiny_cfg():
     ])
 
 
+@pytest.fixture(scope="module")
+def cpu_system():
+    """The tiny config and a DreamMat system built on the CPU (its geometry
+    and material feed the datamodule, renderer and exporter cases)."""
+    cfg = _tiny_cfg()
+    return cfg, dreammat_tpu_torch.find("dreammat-system")(cfg.system, device="cpu")
+
+
 @pytest.mark.parametrize("entry", ["system", "datamodule", "guidance", "renderer", "exporter",
                                    "prompt_processor", "texcraft_system", "sds_guidance",
                                    "triple_guidance"])
-def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry):
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry, cpu_system):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    cfg = _tiny_cfg()
+    cfg, sys_cpu = cpu_system
     find = dreammat_tpu_torch.find
-    sys_cpu = find("dreammat-system")(cfg.system, device="cpu")
     build = {
         "system": lambda **kw: find("dreammat-system")(cfg.system, **kw),
         "datamodule": lambda **kw: find("random-camera-datamodule")(

@@ -44,10 +44,11 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 
 import test_torch_volume
 from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
-from test_torch_volume import (  # noqa: F401  (one_thread: a module fixture)
-    SEED, TINY_GRID, GivenDraws, _close, _geometries, _render_draws, one_thread, scene_moves,
+from test_torch_volume import (
+    SEED, TINY_GRID, GivenDraws, _close, _geometries, _render_draws, scene_moves,
     volume_pair,
 )
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-5
 RTOL_FD = 1e-4

@@ -40,6 +40,8 @@ from dreammat_tpu.ops import visibility as jvis
 from dreammat_tpu_torch.models.mesh import compute_vertex_normals, torus_arrays
 from dreammat_tpu_torch.ops import bvh as tbvh
 from dreammat_tpu_torch.ops import visibility as tvis
+from torch_threads import one_thread  # noqa: F401
+
 
 P = 64
 OCT = 8

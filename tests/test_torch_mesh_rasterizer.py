@@ -42,18 +42,11 @@ import dreammat_tpu_torch.models  # noqa: F401
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 
 from test_torch_dreammat_step import _np
+from torch_threads import one_thread  # noqa: F401
 
 TINY_GRID = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
              "log2_hashmap_size": 10, "base_resolution": 4, "per_level_scale": 1.5}
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(a, b, tol=TOL, what=""):

@@ -9,10 +9,12 @@
   weights at elevations and azimuths over every bucket and its borders,
   overhead included, to 1e-6.
 - The Perp-Neg guidance (five replicas in one ControlNet + UNet pass, the
-  negatives interleaved per sample, ``perpneg_scale`` in the gradient) on
-  the tiny diffusion stack at batch 2: the loss and its gradient with
-  respect to the rendered image, with the JAX package's draws handed to
-  the port and its weights carried over by the weight bridge, to relative
+  negatives interleaved per sample, each on its own sample's latent,
+  ``perpneg_scale`` in the gradient) on the tiny diffusion stack at batch
+  2, with the JAX package's draws handed to the port and its weights
+  carried over by the weight bridge: the port's loss is the formula by
+  hand on its own rows; the JAX package's loss and image gradient are the
+  formula on block-replicated latents (its fault at B > 1), to relative
   2e-3.
 """
 
@@ -33,6 +35,7 @@ from dreammat_tpu.models.diffusion import convert as jconvert
 from dreammat_tpu.models.prompt import PromptEmbeddings as JPE
 from dreammat_tpu_torch.models.diffusion.convert import flax_to_torch_state_dict
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
+from torch_threads import one_thread  # noqa: F401
 
 
 def _rel(a, b):
@@ -165,6 +168,17 @@ class GivenDraws:
 
 
 def test_perp_neg_guidance_matches_jax():
+    """At batch 2 the port runs each negative on its own sample's latent
+    (``perp_neg_rows``); the JAX package replicates the latents in blocks,
+    so its sample 1's negatives run on sample 0's latent and the reverse.
+    The port's loss is the formula by hand on its own rows, and the JAX
+    package's loss and image gradient are the same formula on the block
+    rows (to relative 2e-3); the two differ by a share of the Perp-Neg
+    term."""
+    from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
+    from dreammat_tpu_torch.models.guidance import perp_neg_rows
+    from dreammat_tpu_torch.utils.ops import perpendicular_component
+
     cfg = {"model_size": "tiny", "half_precision_weights": False, "width": 32, "height": 32,
            "cache_dir": None, "controlnet_path": None, "cond_scale": 1.0,
            "uncond_scale": -0.5, "null_scale": -1.0, "perpneg_scale": 0.7, "noise_scale": 0.0}
@@ -205,15 +219,40 @@ def test_perp_neg_guidance_matches_jax():
                         "t": np.asarray(jax.random.uniform(k_t, (B,))),
                         "noise": nchw(jax.random.normal(k_noise, lat))})
     x = torch.from_numpy(nchw(rgb)).requires_grad_()
-    out = tg(x, te, torch.from_numpy(elev), torch.from_numpy(azim), torch.from_numpy(dist),
-             torch.from_numpy(nchw(cond)), step, draws)
+    args = (te, torch.from_numpy(elev), torch.from_numpy(azim), torch.from_numpy(dist),
+            torch.from_numpy(nchw(cond)), step, draws)
+    out = tg(x, *args)
     out["loss_sds"].backward()
-    assert abs(out["loss_sds"].item() - float(j_loss)) <= 2e-3 * abs(float(j_loss))
-    assert _rel(x.grad.permute(0, 2, 3, 1).numpy(), j_grad) < 2e-3
+    t_loss = out["loss_sds"].item()
 
-    # the Perp-Neg term is in the gradient: without it the loss differs
-    te0 = te._replace(use_perp_neg=False)
-    with torch.no_grad():
-        out0 = tg(x, te0, torch.from_numpy(elev), torch.from_numpy(azim),
-                  torch.from_numpy(dist), torch.from_numpy(nchw(cond)), step, draws)
-    assert abs(out0["loss_sds"].item() - out["loss_sds"].item()) > 1e-3 * abs(float(j_loss))
+    # the loss by hand, on the port's rows and on the JAX package's blocks
+    z = x.detach().requires_grad_()
+    latents = tg.encode_images(z, torch.from_numpy(draws.draws["vae_eps"]))
+    t, _, _ = tg._timesteps(B, step, draws)
+    noise = torch.from_numpy(draws.draws["noise"])
+    emb5, neg_w = te.get_text_embeddings_perp_neg(*args[1:4])
+    image_cond, scales = tg._controls(args[4], z, step)
+
+    def by_hand(rows, perpneg_scale):
+        with torch.no_grad():
+            eps = tg.noise_pred(add_noise(tg.schedule, latents, noise, t), t, emb5, image_cond,
+                                scales, 5, rows=rows)
+        e_text, e_unc, e_neg, e_null = eps[:B], eps[B:2 * B], eps[2 * B:4 * B], eps[4 * B:]
+        e_pos = e_text - e_unc
+        perp = sum(neg_w[:, i].reshape(-1, 1, 1, 1)
+                   * perpendicular_component(e_neg[i::2] - e_unc, e_pos) for i in range(2))
+        w = (1.0 - tg.schedule["alphas_cumprod"][t]).reshape(-1, 1, 1, 1)
+        grad = w * (e_text - 0.5 * e_unc - e_null + perpneg_scale * perp)
+        return 0.5 * torch.sum((latents - (latents - grad).detach()) ** 2) / B
+
+    own = by_hand(perp_neg_rows(B, True, t.device), 0.7)
+    assert abs(own.item() - t_loss) <= 1e-5 * t_loss, (own.item(), t_loss)
+    blocks = by_hand(None, 0.7)
+    blocks.backward()
+    assert abs(blocks.item() - float(j_loss)) <= 2e-3 * abs(float(j_loss))
+    assert _rel(z.grad.permute(0, 2, 3, 1).numpy(), j_grad) < 2e-3
+    # the Perp-Neg term is in the port's loss, and the JAX block read moves it
+    no_perp = by_hand(None, 0.0).item()
+    assert abs(t_loss - no_perp) > 1e-3 * t_loss
+    assert abs(t_loss - float(j_loss)) > 0.05 * abs(t_loss - no_perp), (t_loss, float(j_loss))
+    assert np.abs(x.grad.numpy()).max() > 0

@@ -60,9 +60,7 @@ from dreammat_tpu_torch.ops import visibility as tvis
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import GivenDraws, _numpy_random_init
-from test_torch_fastpath import one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_thread")
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 0
 GB_FIELDS = ("fg_pos", "fg_normal", "fg_viewdir", "fg_bary", "fg_uv")

@@ -35,6 +35,7 @@ from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
 from dreammat_tpu_torch.models.guidance import perp_neg_rows
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
 from dreammat_tpu_torch.utils.ops import perpendicular_component
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-4
 HW = 32
@@ -86,14 +87,6 @@ def _embeddings(N=16, D=64, seed=1):
     shapes = {"text_vd": (4, N, D), "uncond_vd": (4, N, D), "text": (N, D), "uncond": (N, D),
               "null": (N, D)}
     return {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import (
     GivenDraws, _csv_losses, _draws_for, _np, _numpy_random_init, _rel, _step_keys, _t,
 )
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 0
 OVERRIDES = TEXCRAFT_TINY + [
@@ -62,14 +63,6 @@ OVERRIDES = TEXCRAFT_TINY + [
     "data.static_field_maps=false",
     "data.prerender_cache_dir=null",
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -40,9 +40,10 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _rel
 from test_torch_latentnerf import fast_pair
-from test_torch_volume import (  # noqa: F401  (one_thread: a module fixture)
-    SEED, TINY_GRID, GivenDraws, _close, _rays, one_thread,
+from test_torch_volume import (
+    SEED, TINY_GRID, GivenDraws, _close, _rays,
 )
+from torch_threads import one_thread  # noqa: F401
 
 RTOL_FD = 1e-4
 SDF_CFG = {"radius": 1.0, "pos_encoding_config": TINY_GRID,

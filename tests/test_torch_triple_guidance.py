@@ -35,17 +35,10 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
 
 from test_torch_detectors import _hed_tree, _normalbae_tree
 from test_torch_sds_guidance import GivenDraws, _embeddings, _nchw, _numpy_random_init, _rel
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-4
 HW = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

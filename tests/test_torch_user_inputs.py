@@ -40,6 +40,8 @@ from dreammat_tpu_torch.models import mesh as tmesh
 from dreammat_tpu_torch.ops import envmap as tenv
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -51,6 +51,7 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-5
 # finite-difference normals divide fp32 density differences by eps = 0.01,
@@ -87,14 +88,6 @@ def _close(a, b, rtol=RTOL, what=""):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (what, a.shape, b.shape)
     assert np.abs(a - b).max() <= rtol * max(np.abs(b).max(), 1e-6), (what, np.abs(a - b).max())
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _geometries(normal_type="finite_difference", **over):

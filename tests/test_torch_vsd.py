@@ -63,18 +63,11 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
 from test_torch_volume import GivenDraws, scene_moves, step_draws, volume_pair
+from torch_threads import one_thread  # noqa: F401
 
 HW = 32
 VSD_CFG = {"model_size": "tiny", "half_precision_weights": False, "width": HW, "height": HW,
            "cache_dir": None, "guidance_scale": 7.5, "lora_rank": 2}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nhwc_to_nchw(x):

@@ -38,6 +38,7 @@ from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNe
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from dreammat_tpu_torch.utils.safetensors_io import save_file
+from torch_threads import one_thread  # noqa: F401
 
 
 def _rel(a, b):
@@ -156,8 +157,10 @@ def test_noise_prediction_matches_jax(loaded):
     ctx = rng.normal(size=(3 * B, 16, 64)).astype(np.float32)
     cond = rng.uniform(size=(1, 2 * h, 2 * h, 22)).astype(np.float32)
     scales = [1.0]
-    j = jg.noise_pred(jg.params, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx),
-                      [jnp.asarray(cond)], [jnp.float32(1.0)], 3)
+    # jitted: eagerly the JAX UNet and ControlNet compile op by op
+    j = jax.jit(jg.noise_pred, static_argnums=6)(
+        jg.params, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx), [jnp.asarray(cond)],
+        [jnp.float32(1.0)], 3)
     nchw = lambda x: torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1)))
     with torch.no_grad():
         got = tg.noise_pred(nchw(lat), torch.from_numpy(t).long(), torch.from_numpy(ctx),

@@ -53,9 +53,10 @@ from dreammat_tpu_torch.models.diffusion.convert import (
 
 from test_torch_dreammat_step import _np, _rel
 from test_torch_latentnerf import _cached_random_init, fast_pair
-from test_torch_volume import (  # noqa: F401  (one_thread: a module fixture)
-    SEED, GivenDraws, _close, _render_draws, one_thread,
+from test_torch_volume import (
+    SEED, GivenDraws, _close, _render_draws,
 )
+from torch_threads import one_thread  # noqa: F401
 
 Z123_TINY = "configs/zero123_tiny.yaml"
 RTOL = 1e-4
