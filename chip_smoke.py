@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, ten to thirteen minutes
+    python3 chip_smoke.py                 # everything, twelve to sixteen minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -133,11 +133,13 @@ which fails the run on any error:
    B = 4 (counted by batch where its wrapper counts a launch), the
    playground 32 a step at B = 3; no backward launch; kernel B in the
    prerender. The triple run's HED (edge map within 1e-3, scribble map on
-   99% of its values) and NormalBae (within one 8-bit level, with its
-   BatchNorm statistics taken from the render: as the run uses it, with
-   random weights and identity statistics, its output depends chaotically
-   on rounding, which the card's fp64 forward shows) on a 512^2 render, on
-   the card against the same modules on the CPU, with their card times.
+   99% of its values, card against the same module on the CPU) and
+   NormalBae (with its BatchNorm statistics taken from the render: as the
+   run uses it, with random weights and identity statistics, its output
+   depends chaotically on rounding, which the card's fp64 forward shows;
+   the card's fp32 forward and the CPU's each within one 8-bit level of
+   the CPU's fp64 forward, card against CPU reported) on a 512^2 render,
+   with their card times.
    Each run's seconds, warm step and peak memory are printed. The same
    runs go on the CPU at tiny size with ``drive_texcraft(work,
    device="cpu", size="tiny", torus=(24, 12), playground_size=32)``.
@@ -276,7 +278,31 @@ which fails the run on any error:
    and warm step, edit seconds, peak memory and test-view seconds are
    printed. The same runs go on the CPU at tiny size with
    ``drive_edit(work, device="cpu", size="tiny")``.
-17. A ``{"kernels": [...]}`` line, the card's line, and last
+17. Main path 12: more than one process (``drive_parallel``), under
+   ``outputs/chip_smoke_parallel/``. First torchrun's variables set in this
+   process for a world of one: ``train_controlnet.main`` joins an NCCL
+   group (asserted) and trains 3 steps at batch 32, the ControlNet in
+   ``DistributedDataParallel``, whose gradient all-reduces the trainer's
+   comm hook counts (none would be reported and an explicit all-reduce and
+   barrier run instead); kernels A, C and D exactly as path 2, the losses
+   within ``PARALLEL_LOSS_RTOL`` of path 2's. Then two ranks spawned on the
+   one card over gloo (NCCL refuses two ranks on one device;
+   ``parallel_rank``): the SD2.1 UNet split over both by
+   ``tp_shard_params`` (bf16, B = 3, 64^2 latents) no further from the
+   replicated bf16 output than three times that output's own distance
+   from the fp32 forward, kernel A by local heads {5: 20, 10: 12} a rank;
+   DDP training at global batch 32 (16 a rank) for 2 steps, its losses
+   within ``PARALLEL_LOSS_RTOL`` of the world-1 run's and its ControlNet's
+   movement at cosine 0.99 or more of the world-1 run's checkpoint at step
+   2, equal on both ranks, kernels A, C and D per rank as path 2 a step;
+   ``shard_rays`` of a DreamMat eval view within 1e-6 of the local render;
+   ``rank_zero_fill`` running its fill once. Last
+   ``batch_generate_torch.py --shard 0/2`` and ``1/2`` as two processes at
+   once over two DreamMat jobs on the torus (2 steps, 4 views, 1 test view,
+   the export at 256^2): each job once, in its shard, with its files. The
+   same runs go on the CPU at tiny size with ``drive_parallel(work,
+   device="cpu", size="tiny", torus=(24, 12))``.
+18. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -749,12 +775,10 @@ def phase_controlnet(steps: int, batch: int, seed: int, work_dir: str) -> dict:
     out_dir = os.path.join(work_dir, "run")
     shutil.rmtree(work_dir, ignore_errors=True)
     t0 = time.time()
-    prompts = write_controlnet_dataset(data_dir, seed)
+    write_controlnet_dataset(data_dir, seed)
     log(f"controlnet: synthetic dataset (1 object, 16 views x 5 envs, 256^2, f16) written in "
         f"{time.time() - t0:.1f}s")
-    argv = ["--config", TRAIN_CONFIG, "--max-steps", str(steps),
-            "sd_cache_dir=null", f"train_data_dir={data_dir}", f"prompt_file_path={prompts}",
-            f"controlnet_dir={out_dir}", f"seed={seed}"]
+    argv = controlnet_argv(work_dir, "sd21", steps, seed, "run")
     counters = {"flash_attn_fwd": attn.flash_attention_fwd,
                 "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
                 "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv}
@@ -1845,11 +1869,15 @@ TEXCRAFT_TINY = [
 
 
 class AttentionBatches:
-    """Kernel A's launches by batch size: a context that puts a wrapper in
-    the place of ``flash_attention_fwd`` and counts a call by its batch
-    where the kernel's wrapper counted a launch. That wrapper counts on its
-    module's name, which is this wrapper while the context is open; the
-    count goes back to it on exit."""
+    """Kernel A's launches by batch size (by ``q.shape[axis]``: ``axis=2``
+    counts by heads): a context that puts a wrapper in the place of
+    ``flash_attention_fwd`` and counts a call where the kernel's wrapper
+    counted a launch. That wrapper counts on its module's name, which is
+    this wrapper while the context is open; the count goes back to it on
+    exit."""
+
+    def __init__(self, axis: int = 0):
+        self.axis = axis
 
     def __enter__(self):
         from dreammat_tpu_torch.ops import attention as attn
@@ -1861,7 +1889,8 @@ class AttentionBatches:
             before = counted.launches
             out = fn(q, k, v)
             if counted.launches > before:
-                self.counts[q.shape[0]] = self.counts.get(q.shape[0], 0) + 1
+                key = q.shape[self.axis]
+                self.counts[key] = self.counts.get(key, 0) + 1
             return out
 
         counted.launches = fn.launches
@@ -1931,10 +1960,13 @@ def check_detectors(system, dm) -> dict:
     """HED (edge map and scribble) and NormalBae of the triple guidance on
     one render of view 0, on the card and, from a copy of the same
     modules, on the CPU; their card times. NormalBae is held with its
-    BatchNorm statistics taken from the render (``batchnorm_from_input``);
-    as the run used it, card and CPU are only reported, beside the card's
-    fp64 forward, which shows how far rounding alone moves it. TF32 is as
-    the caller set it."""
+    BatchNorm statistics taken from the render (``batchnorm_from_input``),
+    the card's fp32 forward and the CPU's each against the fp64 forward of
+    the same module on the CPU (fp32 rounding alone moves either by up to
+    3.3e-3 from it, ``tools/normalbae_rounding.py``, so card against CPU
+    can differ by twice that); as the run used it, card and CPU are only
+    reported, beside the card's fp64 forward, which shows how far rounding
+    alone moves it. TF32 is as the caller set it."""
     import copy
 
     g = system.guidance
@@ -1959,6 +1991,12 @@ def check_detectors(system, dm) -> dict:
         res[name] = {"max_abs": diff.max().item(), "share_over_0.5": float((diff > 0.5).float()
                                                                           .mean()),
                      "card_ms": ms, "cpu_s": cpu_s, "mean": float(card.mean())}
+        if name == "normalbae":
+            with torch.no_grad():
+                ref64 = copy.deepcopy(cpu_module).double().detect(rgb.cpu().double())
+            res[name].update(card_vs_fp64=(card.cpu().double() - ref64).abs().max().item(),
+                             cpu_vs_fp64=(cpu.double() - ref64).abs().max().item())
+            del ref64
         if name == "normalbae_as_run":
             with torch.no_grad():
                 card64 = copy.deepcopy(module).double().detect(rgb.double())
@@ -2076,11 +2114,16 @@ def drive_texcraft(work: str, device: str = "cuda", size: str = "sd21", views: i
                                               "normalbae_as_run"))
                         + f" (as run, the card's fp64 forward against its fp32: max|diff| "
                         f"{nr['card_fp64_max_abs']:.3e}, "
-                        f"{100 * nr['card_fp64_share_over_0_5']:.3f}% over 0.5)")
-                    # edge and normal maps within 1e-3 and one 8-bit level; the
-                    # binary scribble map on all but 1% of its values
+                        f"{100 * nr['card_fp64_share_over_0_5']:.3f}% over 0.5); NormalBae "
+                        f"against the CPU's fp64 forward: card "
+                        f"{d['normalbae']['card_vs_fp64']:.3e}, CPU "
+                        f"{d['normalbae']['cpu_vs_fp64']:.3e}")
+                    # the edge map within 1e-3 card against CPU; the normal map of
+                    # card and CPU each within one 8-bit level of fp64; the binary
+                    # scribble map on all but 1% of its values
                     if not (d["hed_edge"]["max_abs"] <= 1e-3
-                            and d["normalbae"]["max_abs"] <= 1.0 / 255.0
+                            and d["normalbae"]["card_vs_fp64"] <= 1.0 / 255.0
+                            and d["normalbae"]["cpu_vs_fp64"] <= 1.0 / 255.0
                             and d["hed_scribble"]["share_over_0.5"] <= 1e-2):
                         raise AssertionError(f"detectors on the card vs the CPU: {d}")
             log(f"texcraft {run} ({r['guidance']}): launch_torch.py --train in "
@@ -2496,14 +2539,16 @@ def morton_order(tri: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
     return torch.argsort(torch.where(valid, code, 1 << 31), stable=True)
 
 
-def dmtet_cast_check(system, last, clock: Optional[float], n_check: int = 65536) -> dict:
+def dmtet_cast_check(system, last, clock: Optional[float], n_check: int = 65536,
+                     n_origin: int = 4096) -> dict:
     """Kernel B on the last training step's hit pass (its rays against its
     whole soup): the kernel's time, the pairs it tested, the pairs it tests
     on the soup in Morton order, the bound over the fewer of the two, and
     bit for bit against ``cast_rays_plain`` on ``n_check`` of its rays
-    (evenly spaced); then 4096 rays through the origin, where every invalid
-    slot (an all-zero triangle, id -1) lies, all checked, none of which may
-    report an invalid slot. On the CPU both sides are the plain caster."""
+    (evenly spaced); then ``n_origin`` rays through the origin, where every
+    invalid slot (an all-zero triangle, id -1) lies, all checked, none of
+    which may report an invalid slot. On the CPU both sides are the plain
+    caster."""
     from dreammat_tpu_torch.ops import bvh as bvh_lib
 
     ro, rd, tri, valid = last
@@ -2512,7 +2557,7 @@ def dmtet_cast_check(system, last, clock: Optional[float], n_check: int = 65536)
     idx = torch.linspace(0, ro.shape[0] - 1, min(n_check, ro.shape[0]),
                          device=ro.device).long()
     gen = torch.Generator(device=ro.device).manual_seed(0)
-    d0 = torch.randn(4096, 3, generator=gen, device=ro.device)
+    d0 = torch.randn(n_origin, 3, generator=gen, device=ro.device)
     d0 = (d0 / d0.norm(dim=-1, keepdim=True)).contiguous()
     o0 = (-2.0 * d0).contiguous()
     rows = {}
@@ -2523,12 +2568,15 @@ def dmtet_cast_check(system, last, clock: Optional[float], n_check: int = 65536)
         else:
             sel = torch.arange(o.shape[0]) if sel is None else sel
             got = bvh_lib.cast_rays_dense(soup, o, d, tri_data=tri_data)
+            if name == "origin":
+                hits = got
             ref = bvh_lib.cast_rays_plain(soup, o[sel], d[sel], tri_data=tri_data)
             rows[name] = {"R": o.shape[0], "T": tri.shape[0], "checked": int(sel.shape[0]),
                           **cast_disagreement({k: v[sel] for k, v in got.items()}, ref)}
             if any(rows[name][k] for k in ("flips", "t_err", "face_diff", "uv_diff")):
                 raise AssertionError(f"DMTet hit pass against the plain caster: {rows[name]}")
-    hits = bvh_lib.cast_rays_dense(soup, o0, d0, tri_data=tri_data)
+    if ro.device.type == "cuda":
+        hits = bvh_lib.cast_rays_dense(soup, o0, d0, tri_data=tri_data)
     if not bool(valid[hits["face"][hits["hit"]].long()].all()):
         raise AssertionError("DMTet hit pass: a ray through the origin hit an invalid slot")
     row = dict(rows["steps"])
@@ -2828,9 +2876,10 @@ def drive_dmtet(work: str, device: str = "cuda", size: str = "sd21",
                 run.endswith("geometry")))
         first = run == next(iter(DMTET_RUNS))
         t1 = time.time()
-        # the CPU form checks the plain caster against itself: 2048 rays do
+        # the CPU form checks the plain caster against itself: 2048 rays and
+        # 1024 through the origin do
         r["cast_vs_plain"] = dmtet_cast_check(system, last, clock, n_check=(
-            65536 if first else 16384) if cuda else 2048)
+            65536 if first else 16384) if cuda else 2048, n_origin=4096 if cuda else 1024)
         r["check_seconds"] = {"cast_vs_plain": time.time() - t1}
         if cuda and first:
             t1 = time.time()
@@ -4145,6 +4194,474 @@ def phase_edit() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 12: more than one process (torch.distributed)
+# ---------------------------------------------------------------------------
+
+PARALLEL_DDP_STEPS = 2
+PARALLEL_TP = {"sd21": (3, 64), "tiny": (2, 8)}  # the TP UNet check's batch and latent side
+# ControlNet losses of a DDP run against path 2's one-process run on the same
+# draws, relative: the steps on the card are not bit-reproducible (cuDNN's
+# backward), and two ranks run each of their 16 rows through other cuDNN and
+# cuBLAS algorithms than one process at batch 32 (bf16 activations)
+PARALLEL_LOSS_RTOL = {"world1": 1e-3, "two_ranks": 5e-3}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(rank: int, world: int):
+    """torchrun's variables for a group on this host, restored after."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def controlnet_argv(work: str, size: str, steps: int, seed: int, out: str,
+                    extra=()) -> list:
+    """``train_controlnet.main``'s arguments on the synthetic dataset under
+    ``work/data`` (``configs/controlnet_train.yaml``; ``tiny``: the tiny
+    models at 16^2, batch 4)."""
+    argv = ["--config", TRAIN_CONFIG, "--max-steps", str(steps), "sd_cache_dir=null",
+            f"train_data_dir={work}/data", f"prompt_file_path={work}/data/prompts.json",
+            f"controlnet_dir={work}/{out}", f"seed={seed}"]
+    if size == "tiny":
+        argv += ["model_size=tiny", "resolution=16", "train_batch_size=4"]
+    return argv + list(extra)
+
+
+def eval_colors(system, batch):
+    """A DreamMat eval view's per-pixel shading (the field and the material
+    on the G-buffer's foreground pixels) as ``fn`` and its arguments, for
+    ``shard_rays``."""
+    gb = batch["gbuffer"]
+
+    def fn(pos, viewdir, normal, tri, bary):
+        feats = system.geometry.apply(system.field, pos)
+        out, _ = system.material(pos, feats, feats, viewdir, normal, batch["env_id"], None,
+                                 is_train=False, vis_data=(tri, bary),
+                                 light_table=batch.get("light_table"))
+        return out["color"]
+
+    return fn, (gb.fg_pos, gb.fg_viewdir, gb.fg_normal, gb.fg_tri, gb.fg_bary)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _param_vector(module) -> torch.Tensor:
+    return torch.cat([p.detach().double().flatten().cpu() for p in module.parameters()])
+
+
+def parallel_tp_check(rank: int, device: str, size: str, seed: int) -> dict:
+    """The UNet split over two ranks (``tp_shard_params``, n_model = 2) on
+    one batch, against the replicated UNet: both in bf16 on the card (fp32
+    on the CPU), each against the replicated fp32 forward (attention plain:
+    kernel A takes bf16 only). Kernel A's launches of the split forward by
+    the heads each rank holds."""
+    import copy
+
+    from dreammat_tpu_torch.models.diffusion import convert
+    from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
+    from dreammat_tpu_torch.parallel.mesh import make_mesh, tp_shard_params
+
+    cuda = device != "cpu"
+    cfg = UNetConfig.sd21() if size == "sd21" else UNetConfig.tiny()
+    dtype = torch.bfloat16 if cuda else torch.float32
+    unet = convert.build_on(lambda: UNet2DCondition(cfg), device, dtype).eval()
+    unet.requires_grad_(False)
+    convert.random_init_(unet, torch.Generator(device=device).manual_seed(seed))
+    B, lat = PARALLEL_TP[size]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(B, 4, lat, lat, generator=g, device=device)
+    t = torch.randint(0, 1000, (B,), generator=g, device=device)
+    ctx = torch.randn(B, 77, cfg.cross_attention_dim, generator=g, device=device)
+    res = {}
+    with torch.no_grad():
+        if rank == 0:
+            rep = unet(x.to(dtype), t, ctx.to(dtype)).float()
+            ref = copy.deepcopy(unet).float()
+            with plain_attention():
+                exact = ref(x, t, ctx).float()
+            del ref
+        res["layers_split"] = tp_shard_params(make_mesh(1, 2), unet)
+        with AttentionBatches(axis=2) as heads:
+            split = unet(x.to(dtype), t, ctx.to(dtype)).float()
+        if cuda:
+            torch.cuda.synchronize()
+    res["kernel_a_by_heads"] = heads.counts
+    if rank == 0:
+        res.update(split_vs_replicated=_rel_l2(split, rep), replicated_vs_fp32=_rel_l2(rep, exact),
+                   split_vs_fp32=_rel_l2(split, exact), finite=bool(torch.isfinite(split).all()),
+                   cos=float(torch.nn.functional.cosine_similarity(
+                       split.flatten().double(), rep.flatten().double(), dim=0)))
+    del unet
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def parallel_rank(rank: int, world: int, work: str, device: str, size: str, seed: int,
+                  ddp_steps: int) -> None:
+    """One of the two ranks of path 12's second phase, on the one card over
+    gloo (NCCL refuses two ranks on one device): the tensor-parallel UNet,
+    DDP ControlNet training, ``shard_rays`` of a DreamMat eval view and
+    ``rank_zero_fill``. Writes ``work/rank{rank}.pt``."""
+    import torch.distributed as tdist
+
+    import dreammat_tpu_torch
+    import dreammat_tpu_torch.data  # noqa: F401 (registry)
+    import dreammat_tpu_torch.models  # noqa: F401
+    import dreammat_tpu_torch.systems  # noqa: F401
+    from dreammat_tpu_torch import train_controlnet
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.parallel import distributed as dist
+    from dreammat_tpu_torch.parallel.mesh import make_mesh, shard_rays
+    from dreammat_tpu_torch.utils.config import load_config
+
+    cuda = device != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cuda:
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    tdist.init_process_group("gloo", init_method=f"file://{os.path.abspath(work)}/gloo_init",
+                             rank=rank, world_size=world)
+    out = {"rank": rank, "backend": tdist.get_backend(), "seconds": {}}
+    try:
+        t0 = time.time()
+        out["tp"] = parallel_tp_check(rank, device, size, seed)
+        out["seconds"]["tp"] = time.time() - t0
+
+        counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                    "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                    "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv}
+        for fn in counters.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = train_controlnet.main(controlnet_argv(work, size, ddp_steps, seed, "ddp"),
+                                    device=device)
+        tr = res["trainer"]
+        out["ddp"] = {"losses": res["losses"], "step": res["step"], "mesh": tr.mesh.shape,
+                      "counts": {k: fn.launches for k, fn in counters.items()},
+                      "grad_allreduces": tr.grad_allreduces, "step_s": tr.step_seconds,
+                      "checksum": float(_param_vector(tr.controlnet).sum()),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+        out["seconds"]["ddp"] = time.time() - t0
+        del res, tr
+        if cuda:
+            torch.cuda.empty_cache()
+
+        t0 = time.time()
+        if size == "tiny":
+            cfg = load_config("configs/dreammat_tiny.yaml", [
+                "system.prompt_processor.prompt=a ceramic vase",
+                "system.geometry.shape_init=procedural:sphere",
+                "system.geometry.shape_init_params=2", "system.material.use_prefiltered=true",
+                "data.fix_view_num=1", "data.fastpath_check=false"])
+        else:  # the guidance is not rendered: its tiny models keep the ranks light
+            cfg = load_config("configs/dreammat.yaml", main_overrides(1) + [
+                "system.guidance.model_size=tiny", "system.guidance.half_precision_weights=false",
+                "system.prompt_processor.model_size=tiny"])
+        system = dreammat_tpu_torch.find(cfg.system_type)(cfg.system, device=device)
+        dm = dreammat_tpu_torch.find(cfg.data_type)(cfg.data, system.renderer, system.material,
+                                                    device=device)
+        dm.setup()
+        system.init_state(seed)
+        fn, fargs = eval_colors(system, dm.eval_view(0))
+        with torch.no_grad():
+            sharded, local = shard_rays(make_mesh(2, 1), fn, *fargs), fn(*fargs)
+        out["render"] = {"pixels": fargs[0].shape[0],
+                         "max_abs": float((sharded - local).abs().max()),
+                         "checksum": float(sharded.double().sum())}
+        out["seconds"]["render"] = time.time() - t0
+        del system, dm, sharded, local
+
+        calls, artifact = os.path.join(work, "fill_calls.txt"), os.path.join(work, "fill_artifact")
+
+        def fill():
+            with open(calls, "a") as f:
+                f.write(f"{rank}\n")
+            with open(artifact, "w") as f:
+                f.write("x")
+
+        out["fill"] = [dist.rank_zero_fill(artifact, fill, "smoke") for _ in range(2)]
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def parallel_batch_generate(work: str, device: str, size: str, obj: str,
+                            timeout: int = 900) -> dict:
+    """``batch_generate_torch.py`` twice at once, ``--shard 0/2`` and
+    ``--shard 1/2``, over two DreamMat jobs on ``obj`` (2 steps, 4 views, 1
+    test view, the export at 256^2). Each job must run once, in its own
+    process, and write its ``save/`` files."""
+    import glob
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prompts = ["a glazed ceramic ring", "a brushed steel ring"]
+    jobs = os.path.join(work, "jobs.json")
+    with open(jobs, "w") as f:
+        json.dump([{"mesh": obj, "prompt": p, "scale": 1.0, "max_steps": 2} for p in prompts], f)
+    config = "configs/dreammat_tiny.yaml" if size == "tiny" else "configs/dreammat.yaml"
+    extras = ["system.prompt_processor.use_cache=false", "system.guidance.cache_dir=null",
+              "system.guidance.controlnet_path=null",
+              "system.material.environment_texture=/nonexistent", "data.fix_view_num=4",
+              "data.prerender_cache_dir=null", "data.n_test_views=1",
+              "system.exporter.texture_size=256"]
+    out_dir = os.path.join(work, "batch")
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for i in range(2):
+            logs.append(os.path.join(work, f"batch_shard{i}.log"))
+            with open(logs[-1], "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(root, "batch_generate_torch.py"),
+                     "--jobs", jobs, "--config", config, "--out", out_dir,
+                     "--shard", f"{i}/2", "--device", device, *extras],
+                    cwd=root, stdout=log_f, stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=max(1, timeout - (time.time() - t0))) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.time() - t0
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    if rcs != [0, 0]:
+        raise AssertionError(f"batch_generate_torch.py exit codes {rcs}; the end of the "
+                             f"logs: {[t[-3000:] for t in texts]}")
+    ran = [[line for line in t.splitlines() if "[job " in line] for t in texts]
+    tests = sorted(glob.glob(os.path.join(out_dir, "**", "save", "it2-test", "0.png"),
+                             recursive=True))
+    exports = sorted(glob.glob(os.path.join(out_dir, "**", "save", "export", "model.obj"),
+                               recursive=True))
+    # shard i ran job i and nothing else; each job's trial wrote its files
+    ok = all(len(r) == 1 and f"[job {i + 1}/2, shard {i}/2]" in r[0] and prompts[i] in r[0]
+             for i, r in enumerate(ran)) and len(tests) == len(exports) == 2
+    if not ok:
+        raise AssertionError(f"batch generation: jobs run {ran}, test renders {tests}, "
+                             f"exports {exports}")
+    return {"seconds": seconds, "jobs_by_shard": ran, "test_pngs": tests,
+            "png_bytes": [check_file(p, b"\x89PNG\r\n\x1a\n", 100) for p in tests]}
+
+
+def drive_parallel(work: str, device: str = "cuda", size: str = "sd21", steps: int = 3,
+                   ddp_steps: int = PARALLEL_DDP_STEPS, seed: int = 0,
+                   ref_losses: Optional[list] = None, torus=(192, 96)) -> dict:
+    """Main path 12: the port over more than one process.
+
+    1. A torchrun group of one process (NCCL on the card, gloo on the CPU):
+       ``train_controlnet.main`` for ``steps`` steps at the config's batch,
+       the ControlNet in DDP, its gradient all-reduce counted by the
+       trainer's comm hook; losses against ``ref_losses`` (path 2's run).
+    2. Two ranks on the one card over gloo (``parallel_rank``): the UNet
+       split over both, DDP ControlNet training for ``ddp_steps`` steps at
+       the same global batch (half a rank), ``shard_rays`` of an eval view
+       and ``rank_zero_fill``; the DDP run's losses and ControlNet against
+       phase 1's at the same step.
+    3. ``batch_generate_torch.py`` as two processes over two jobs."""
+    import shutil
+
+    import torch.distributed as tdist
+    import torch.multiprocessing as tmp
+
+    import dreammat_tpu_torch
+    from dreammat_tpu_torch import train_controlnet
+    from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.utils.ckpt import load_checkpoint
+
+    cuda = device != "cpu"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    res = {"seconds": {}}
+    write_controlnet_dataset(os.path.join(work, "data"), seed, res=16 if size == "tiny" else 256)
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd,
+                "flash_attn_bwd_dq": attn.flash_attention_bwd_dq,
+                "flash_attn_bwd_dkv": attn.flash_attention_bwd_dkv}
+
+    # 1. world size 1 through torchrun's variables
+    t0 = time.time()
+    with torchrun_env(0, 1):
+        for fn in counters.values():
+            fn.launches = 0
+        out = train_controlnet.main(controlnet_argv(work, size, steps, seed, "world1",
+                                                    [f"checkpointing_steps={ddp_steps}"]),
+                                    device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        trainer = out["trainer"]
+        backend = tdist.get_backend()
+        allreduces = trainer.grad_allreduces
+        explicit = None
+        if allreduces == 0:  # DDP skipped its all-reduce: one explicit all-reduce and barrier
+            dreammat_tpu_torch.warn("path 12: DDP ran no gradient all-reduce at world size 1")
+            x = torch.ones(4, device=trainer.device)
+            tdist.all_reduce(x)
+            tdist.barrier()
+            explicit = float(x.sum())
+        tdist.destroy_process_group()
+    w1 = {"backend": backend, "counts": counts, "grad_allreduces": allreduces,
+          "explicit_all_reduce": explicit, "losses": out["losses"],
+          "step_s": trainer.step_seconds}
+    want_backend = "nccl" if cuda else "gloo"
+    want = {k: n * steps for k, n in LAUNCHES_PER_TRAIN_STEP.items()}
+    if backend != want_backend or (cuda and counts != want):
+        raise AssertionError(f"path 12 world size 1: backend {backend}, launches {counts} "
+                             f"(expected {want_backend}, {want})")
+    if ref_losses is not None:
+        w1["loss_rel_vs_path2"] = max(abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                                          ref_losses))
+        if not (len(ref_losses) == steps and w1["loss_rel_vs_path2"]
+                <= PARALLEL_LOSS_RTOL["world1"]):
+            raise AssertionError(f"path 12 world size 1: losses {out['losses']} against path "
+                                 f"2's {ref_losses}")
+    del out, trainer
+    res["world1"] = w1
+    res["seconds"]["world1"] = time.time() - t0
+    log(f"parallel: world size 1 over {backend}: {steps} ControlNet steps, DDP gradient "
+        f"all-reduces {allreduces} (explicit {explicit}), launches {counts}, losses "
+        f"{', '.join(f'{x:.6g}' for x in w1['losses'])}"
+        + (f", max relative difference to path 2 {w1['loss_rel_vs_path2']:.3e}"
+           if ref_losses is not None else "") + f", {res['seconds']['world1']:.1f}s")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2. two ranks on the one card over gloo
+    t0 = time.time()
+    ctx = tmp.start_processes(parallel_rank, args=(2, work, device, size, seed, ddp_steps),
+                              nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=900):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    res["seconds"]["two_ranks"] = time.time() - t0
+    tp = ranks[0]["tp"]
+    tp_heads = [r["tp"]["kernel_a_by_heads"] for r in ranks]
+    # the split output no further from the replicated one than bf16 rounding
+    # alone takes the replicated output from fp32 (three times that; fp32 on the CPU)
+    tp_bound = max(3 * tp["replicated_vs_fp32"], 1e-5)
+    d0, d1 = ranks[0]["ddp"], ranks[1]["ddp"]
+    sd_w1, _, step_w1 = load_checkpoint(os.path.join(work, "world1", f"checkpoint-{ddp_steps}"))
+    sd_two, _, step_two = load_checkpoint(os.path.join(work, "ddp", "controlnet_final"))
+    ref = dreammat_tpu_torch.find("controlnet-trainer")(
+        {"model_size": "tiny" if size == "tiny" else "sd21", "seed": seed}, device=device)
+    ref.init_params()
+    init = {k: v.double().cpu() for k, v in ref.controlnet.state_dict().items()}
+    del ref
+    mv_w1 = torch.cat([(sd_w1[k].double() - init[k]).flatten() for k in sorted(init)])
+    mv_two = torch.cat([(sd_two[k].double() - init[k]).flatten() for k in sorted(init)])
+    ddp = {"losses": d0["losses"], "loss_rel_vs_world1": max(
+               abs(a - b) / abs(b) for a, b in zip(d0["losses"], w1["losses"][:ddp_steps])),
+           "moved_cos": float(torch.nn.functional.cosine_similarity(mv_w1, mv_two, dim=0)),
+           "moved_max": float(mv_w1.abs().max()), "max_abs_vs_world1": float(
+               (mv_two - mv_w1).abs().max()), "counts": [d0["counts"], d1["counts"]],
+           "grad_allreduces": [d0["grad_allreduces"], d1["grad_allreduces"]],
+           "step_s": [d0["step_s"], d1["step_s"]], "peak_gb": [d0["peak_gb"], d1["peak_gb"]]}
+    want_rank = {k: n * ddp_steps for k, n in LAUNCHES_PER_TRAIN_STEP.items()}
+    with open(os.path.join(work, "fill_calls.txt")) as f:
+        fill_calls = f.read().split()
+    res["two_ranks"] = {"backend": [r["backend"] for r in ranks], "tp": tp,
+                        "tp_kernel_a_by_heads": tp_heads, "tp_bound": tp_bound, "ddp": ddp,
+                        "render": [r["render"] for r in ranks], "fill_calls": fill_calls,
+                        "seconds_by_rank": [r["seconds"] for r in ranks]}
+    checks = {
+        "tp split within the bf16 bound": tp["split_vs_replicated"] <= tp_bound and tp["finite"],
+        "tp layers split on both ranks": ranks[0]["tp"]["layers_split"]
+        == ranks[1]["tp"]["layers_split"] > 0,
+        "ddp losses equal on both ranks": d0["losses"] == d1["losses"],
+        "ddp ControlNet equal on both ranks": d0["checksum"] == d1["checksum"],
+        "ddp losses against world size 1": ddp["loss_rel_vs_world1"]
+        <= PARALLEL_LOSS_RTOL["two_ranks"],
+        "ddp ControlNet moved as at world size 1": ddp["moved_cos"] >= 0.99
+        and step_w1 == step_two == ddp_steps,
+        "ddp all-reduced": min(ddp["grad_allreduces"]) > 0 and d0["mesh"] == {"data": 2,
+                                                                             "model": 1},
+        "render sharded as local": all(r["render"]["max_abs"] <= 1e-6 for r in ranks)
+        and ranks[0]["render"]["checksum"] == ranks[1]["render"]["checksum"],
+        "rank_zero_fill once": fill_calls == ["0"] and all(r["fill"] == [True, True]
+                                                            for r in ranks),
+    }
+    if cuda:
+        # the SD2.1 UNet's 32 attentions at n_model = 2: the 320-wide blocks'
+        # 10 keep their 5 heads whole; the 640-wide blocks' 10 (10 heads) and
+        # the 1280-wide blocks' 12 (20 heads) hold 5 and 10 a rank
+        checks["tp kernel A at the local heads"] = all(h == {5: 20, 10: 12} for h in tp_heads)
+        checks["ddp launches a rank"] = all(c == want_rank for c in ddp["counts"])
+    bad = [k for k, ok in checks.items() if not ok]
+    log(f"parallel: two ranks on one device over {ranks[0]['backend']} in "
+        f"{res['seconds']['two_ranks']:.1f}s (by rank and part {res['two_ranks']['seconds_by_rank']}): "
+        f"tensor-parallel UNet ({tp['layers_split']} layers split, kernel A by local heads "
+        f"{tp_heads}) against replicated {tp['split_vs_replicated']:.3e} (bound {tp_bound:.3e}; "
+        f"replicated against fp32 {tp['replicated_vs_fp32']:.3e}, split against fp32 "
+        f"{tp['split_vs_fp32']:.3e}, cos {tp['cos']:.6f}); DDP {ddp_steps} steps at "
+        f"{d0['mesh']}: losses {', '.join(f'{x:.6g}' for x in d0['losses'])}, max relative "
+        f"difference to world size 1 {ddp['loss_rel_vs_world1']:.3e}, ControlNet movement cos "
+        f"{ddp['moved_cos']:.6f} (max |moved| {ddp['moved_max']:.3e}, max |diff| "
+        f"{ddp['max_abs_vs_world1']:.3e}), all-reduces {ddp['grad_allreduces']}, launches a "
+        f"rank {ddp['counts']}, steps {ddp['step_s']}, peak {ddp['peak_gb']} GB; eval view "
+        f"through shard_rays ({ranks[0]['render']['pixels']} pixels) max|diff| "
+        f"{[r['render']['max_abs'] for r in ranks]}; rank_zero_fill calls {fill_calls}")
+    if bad:
+        raise AssertionError(f"path 12 two ranks: {bad}")
+
+    # 3. batch generation, two processes
+    t0 = time.time()
+    v, f = torus_arrays(0.7, 0.28, *torus)
+    obj = write_obj(os.path.join(work, "torus.obj"), v, f)
+    res["batch"] = parallel_batch_generate(work, device, size, obj)
+    res["seconds"]["batch"] = time.time() - t0
+    log(f"parallel: batch_generate_torch.py --shard 0/2 and 1/2 at once in "
+        f"{res['batch']['seconds']:.1f}s: jobs {res['batch']['jobs_by_shard']}, test PNGs "
+        f"{res['batch']['png_bytes']} bytes")
+    res["counts"] = {k: w1["counts"][k] for k in counters}
+    return res
+
+
+def phase_parallel(ref_losses: list, seed: int) -> dict:
+    """Main path 12 on the card (``drive_parallel`` at full width)."""
+    import shutil
+
+    work = os.path.join("outputs", "chip_smoke_parallel")
+    res = drive_parallel(work, seed=seed, ref_losses=ref_losses)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4223,7 +4740,7 @@ def main() -> int:
                 "ray_cast": None}
     r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
-    rest_res = single_res = edit_res = None
+    rest_res = single_res = edit_res = par_res = None
     s_counts = dict(d_counts)
     e_counts = dict(d_counts)
     if not args.kernels_only:
@@ -4250,6 +4767,7 @@ def main() -> int:
         s_counts = single_res["counts"]
         edit_res = timed("edit", phase_edit)
         e_counts = edit_res["counts"]
+        par_res = timed("parallel", phase_parallel, cn_res["losses"], args.seed)
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -4289,6 +4807,12 @@ def main() -> int:
                                      for run, r in single_res["runs"].items()},
                                   "zero123_vsd":
                                       single_res["zero123_vsd"]["flash_attn_fwd_by_batch"]},
+                              "parallel_nccl_world1": par_res and par_res["counts"][
+                                  "flash_attn_fwd"],
+                              "parallel_gloo_ddp_by_rank": par_res and [
+                                  c["flash_attn_fwd"] for c in par_res["two_ranks"]["ddp"]["counts"]],
+                              "parallel_gloo_tp_by_rank_and_heads": par_res and par_res[
+                                  "two_ranks"]["tp_kernel_a_by_heads"],
                               "edit": e_counts["flash_attn_fwd"],
                               "edit_by_run_and_batch": edit_res and {
                                   **{run: r["flash_attn_fwd_by_batch"]
@@ -4321,7 +4845,10 @@ def main() -> int:
                               "dmtet": d_counts["flash_attn_bwd_dq"],
                               "volume_rest": r_counts["flash_attn_bwd_dq"],
                               "single_image": s_counts["flash_attn_bwd_dq"],
-                              "edit": e_counts["flash_attn_bwd_dq"]},
+                              "edit": e_counts["flash_attn_bwd_dq"],
+                              "parallel_nccl_world1": par_res and par_res["counts"]["flash_attn_bwd_dq"],
+                              "parallel_gloo_ddp_by_rank": par_res and [
+                                  c["flash_attn_bwd_dq"] for c in par_res["two_ranks"]["ddp"]["counts"]]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dq"],
          "max_abs_err": max(r["errs"]["dq"]["max"] for res in (bwd_res, *bwd_vol.values())
                             for r in res["rows"]),
@@ -4339,7 +4866,10 @@ def main() -> int:
                               "dmtet": d_counts["flash_attn_bwd_dkv"],
                               "volume_rest": r_counts["flash_attn_bwd_dkv"],
                               "single_image": s_counts["flash_attn_bwd_dkv"],
-                              "edit": e_counts["flash_attn_bwd_dkv"]},
+                              "edit": e_counts["flash_attn_bwd_dkv"],
+                              "parallel_nccl_world1": par_res and par_res["counts"]["flash_attn_bwd_dkv"],
+                              "parallel_gloo_ddp_by_rank": par_res and [
+                                  c["flash_attn_bwd_dkv"] for c in par_res["two_ranks"]["ddp"]["counts"]]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_bwd_dkv"],
          "max_abs_err": max(max(r["errs"]["dk"]["max"], r["errs"]["dv"]["max"])
                             for res in (bwd_res, *bwd_vol.values()) for r in res["rows"]),
@@ -4396,7 +4926,7 @@ def main() -> int:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
                    "volume": vol_res, "dmtet": dmtet_res, "volume_rest": rest_res,
-                   "single_image": single_res, "edit": edit_res,
+                   "single_image": single_res, "edit": edit_res, "parallel": par_res,
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,

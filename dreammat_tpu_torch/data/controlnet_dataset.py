@@ -139,14 +139,21 @@ class ControlNetDataset:
                 prompt = ""
         return ControlNetExample(target, cond, prompt)
 
-    def batches(self, batch_size: int, epochs: int = 1, shuffle: bool = True):
+    def batches(self, batch_size: int, epochs: int = 1, shuffle: bool = True,
+                shard: Tuple[int, int] = (0, 1)):
         """Yield dict batches of stacked arrays and prompt lists; a last
-        partial batch of an epoch is dropped."""
+        partial batch of an epoch is dropped. With ``shard=(i, n)`` each
+        batch of ``batch_size`` is cut into n blocks and only block i is
+        read (one rank's rows; every rank draws the same order)."""
+        index, count = shard
+        if batch_size % count:
+            raise ValueError(f"a batch of {batch_size} does not split over {count} ranks")
+        per = batch_size // count
         n = len(self)
         for _ in range(epochs):
             order = self.rng.permutation(n) if shuffle else np.arange(n)
             for i in range(0, n - batch_size + 1, batch_size):
-                items = [self[int(j)] for j in order[i: i + batch_size]]
+                items = [self[int(j)] for j in order[i + index * per: i + (index + 1) * per]]
                 yield {
                     "target": np.stack([it.target for it in items]),
                     "condition": np.stack([it.condition for it in items]),

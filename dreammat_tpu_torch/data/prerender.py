@@ -20,12 +20,14 @@ package loads in the other: the npz prerender cache
 uint8, depth as uint16, the specular tables in f16; written from a
 background thread after the arrays are on the host, renamed into place
 when complete, and read back from the next run with the same mesh, rig
-and sizes), and the reference's Blender PNG cache
+and sizes; under a process group rank 0 writes it, synchronously, and the
+other ranks read it), and the reference's Blender PNG cache
 (``load_reference_png_cache`` / ``write_reference_png_cache``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import threading
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 import dreammat_tpu_torch
 from dreammat_tpu_torch.data.cameras import CameraSet
 from dreammat_tpu_torch.ops import envmap as envmap_lib
+from dreammat_tpu_torch.parallel import distributed as dist
 from dreammat_tpu_torch.utils import ops as uops
 
 PROBE_MR = [(0.0, 0.0), (0.0, 0.5), (0.0, 1.0), (1.0, 0.0), (1.0, 0.5), (1.0, 1.0)]
@@ -342,45 +345,50 @@ def prerender(renderer, material, cam: CameraSet, height: int, width: int, n_env
     seconds["mesh_bakes"] = time.time() - t0
     dreammat_tpu_torch.info("prerender: mesh-wide bakes in %.2fs", seconds["mesh_bakes"])
 
-    if cache_path:
-        _wait_for_writer(cache_path)
-    if cache_path and os.path.exists(cache_path):
-        t0 = time.time()
-        cached = _load_cache(cache_path, dev)
-        if cached is not None:
-            _sync(dev)
-            seconds["cache_load"] = time.time() - t0
-            dreammat_tpu_torch.info("loaded prerender cache %s in %.2fs", cache_path,
-                                    seconds["cache_load"])
-            return PrerenderData(gbuffers=gbuffers, table_diff=e_d_vertex, lvis=lvis,
-                                 oct_res=oct_res, cond_height=cond_height,
-                                 cond_width=cond_width, seconds=seconds, from_cache=True,
-                                 **cached)
-        dreammat_tpu_torch.info("prerender cache %s is stale; regenerating", cache_path)
+    # under a process group rank 0 loads or writes the cache first, then the
+    # others read what it wrote (JAX prerender.py:684-690)
+    with dist.rank_zero_first("prerender_cache") if cache_path else contextlib.nullcontext():
+        if cache_path:
+            _wait_for_writer(cache_path)
+        if cache_path and os.path.exists(cache_path):
+            t0 = time.time()
+            cached = _load_cache(cache_path, dev)
+            if cached is not None:
+                _sync(dev)
+                seconds["cache_load"] = time.time() - t0
+                dreammat_tpu_torch.info("loaded prerender cache %s in %.2fs", cache_path,
+                                        seconds["cache_load"])
+                return PrerenderData(gbuffers=gbuffers, table_diff=e_d_vertex, lvis=lvis,
+                                     oct_res=oct_res, cond_height=cond_height,
+                                     cond_width=cond_width, seconds=seconds, from_cache=True,
+                                     **cached)
+            dreammat_tpu_torch.info("prerender cache %s is stale; regenerating", cache_path)
 
-    t0 = time.time()
-    lightmaps, tables, depths, normals = [], [], [], []
-    for i, gb in enumerate(gbuffers):
-        img, tab, depth, normal = probe_view_for_camera(
-            renderer, (lvis, e_d_vertex, fg_lut, oct_res), cam_pos[i], gb, n_envs, cond_height,
-            cond_width)
-        lightmaps.append(img)
-        tables.append(tab[:, :, 1:])
-        depths.append(depth)
-        normals.append(normal)
-    data = PrerenderData(
-        gbuffers=gbuffers, lightmaps=torch.stack(lightmaps), depths=torch.stack(depths),
-        normals=torch.stack(normals), table_spec=torch.stack(tables), table_diff=e_d_vertex,
-        lvis=lvis, oct_res=oct_res, cond_height=cond_height, cond_width=cond_width,
-        seconds=seconds,
-    )
-    _sync(dev)
-    seconds["probes_tables"] = time.time() - t0
-    dreammat_tpu_torch.info("prerender: probes+tables for %d views in %.2fs", len(cam),
-                            seconds["probes_tables"])
-    if cache_path:
-        _start_cache_write(cache_path, data)
-    return data
+        t0 = time.time()
+        lightmaps, tables, depths, normals = [], [], [], []
+        for i, gb in enumerate(gbuffers):
+            img, tab, depth, normal = probe_view_for_camera(
+                renderer, (lvis, e_d_vertex, fg_lut, oct_res), cam_pos[i], gb, n_envs,
+                cond_height, cond_width)
+            lightmaps.append(img)
+            tables.append(tab[:, :, 1:])
+            depths.append(depth)
+            normals.append(normal)
+        data = PrerenderData(
+            gbuffers=gbuffers, lightmaps=torch.stack(lightmaps), depths=torch.stack(depths),
+            normals=torch.stack(normals), table_spec=torch.stack(tables), table_diff=e_d_vertex,
+            lvis=lvis, oct_res=oct_res, cond_height=cond_height, cond_width=cond_width,
+            seconds=seconds,
+        )
+        _sync(dev)
+        seconds["probes_tables"] = time.time() - t0
+        dreammat_tpu_torch.info("prerender: probes+tables for %d views in %.2fs", len(cam),
+                                seconds["probes_tables"])
+        if cache_path and dist.is_rank_zero():
+            _start_cache_write(cache_path, data)
+            if dist.process_count() > 1:  # the other ranks read it once this rank leaves
+                _wait_for_writer(cache_path)
+        return data
 
 
 def _inverse_normalize_depth(depth_raw: np.ndarray, min_val: float = 0.3) -> np.ndarray:

@@ -92,10 +92,13 @@ class Attention(nn.Module):
         context = x if context is None else context.to(self.to_k.weight.dtype)
         B, N, _ = x.shape
         M = context.shape[1]
-        q = self.to_q(x).reshape(B, N, self.num_heads, self.head_dim)
-        k = self.to_k(context).reshape(B, M, self.num_heads, self.head_dim)
-        v = self.to_v(context).reshape(B, M, self.num_heads, self.head_dim)
-        out = fused_attention(q, k, v).reshape(B, N, self.num_heads * self.head_dim)
+        q = self.to_q(x)
+        # the heads this rank holds: all of them unless tp_shard_params split them
+        H = q.shape[-1] // self.head_dim
+        q = q.reshape(B, N, H, self.head_dim)
+        k = self.to_k(context).reshape(B, M, H, self.head_dim)
+        v = self.to_v(context).reshape(B, M, H, self.head_dim)
+        out = fused_attention(q, k, v).reshape(B, N, H * self.head_dim)
         return self.to_out[0](out)
 
 

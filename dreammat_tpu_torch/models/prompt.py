@@ -23,6 +23,7 @@ the JAX package's ``ip2p`` embeddings are its tiny tower's.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -36,6 +37,7 @@ import dreammat_tpu_torch
 from dreammat_tpu_torch.models.diffusion.clip_text import CLIPTextConfig, CLIPTextModel
 from dreammat_tpu_torch.models.diffusion.convert import build_on, load_model_dir, random_init_
 from dreammat_tpu_torch.models.diffusion.tokenizer import CLIPTokenizer
+from dreammat_tpu_torch.parallel import distributed as dist
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.hw import resolve_device
 
@@ -239,7 +241,15 @@ class StableDiffusionPromptProcessor(BaseObject):
 
     def encode_prompts(self, prompts: List[str]) -> torch.Tensor:
         """[len(prompts), N, D] float32 on the device: cached ``.npy`` files
-        where they exist (with ``use_cache``), the rest encoded and written."""
+        where they exist (with ``use_cache``), the rest encoded and written.
+        Under a process group rank 0 encodes and writes what the shared cache
+        lacks while the others wait at a barrier, then they read it (the JAX
+        package's rank-0 fill, ``prompt.py:244-262``)."""
+        with dist.rank_zero_first("text_embeddings") if self.cfg.use_cache \
+                else contextlib.nullcontext():
+            return self._encode_with_cache(prompts)
+
+    def _encode_with_cache(self, prompts: List[str]) -> torch.Tensor:
         cfg = self.cfg
         out: List[Optional[np.ndarray]] = [None] * len(prompts)
         paths = [os.path.join(cfg.cache_dir, self._cache_key(p) + ".npy") for p in prompts]

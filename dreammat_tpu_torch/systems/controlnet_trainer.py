@@ -1,6 +1,6 @@
 """ControlNet training: epsilon-MSE fine-tuning of the 22-channel ControlNet.
 
-Counterpart of ``dreammat_tpu/systems/controlnet_trainer.py`` on one card.
+Counterpart of ``dreammat_tpu/systems/controlnet_trainer.py``.
 Frozen VAE, UNet and CLIP text encoder; a trainable ControlNet seeded from
 the UNet (``controlnet_from_unet``, diffusers' ``from_unet`` semantics). Per
 step: VAE-encode the target, draw t and the noise, add noise, CLIP-encode
@@ -22,11 +22,23 @@ Weights are random unless ``sd_cache_dir`` holds diffusers-layout ``unet``,
 ``vae`` and ``text_encoder`` checkpoints. Checkpoints are torch-native
 (``utils/ckpt.py``); ``export_diffusers`` writes the diffusers-layout
 safetensors that the guidance loads through ``controlnet_path``.
-Multi-card data parallelism is not ported yet.
+
+More than one process (``fit(..., mesh=make_mesh(...))`` under a process
+group, as the JAX trainer takes a mesh): the batch splits over the mesh's
+data axis, each rank reading only its rows of the global batch and keeping
+its rows of the global batch's draws (``vae_eps``, ``t``, ``noise`` from the
+same seeded generator on every rank), so a run on ``n_data`` ranks takes
+the steps of the one-process run at the same global batch. Only the
+trainable ControlNet is wrapped in ``DistributedDataParallel``, whose
+all-reduce averages the gradient before the clip by global norm; under
+``n_model > 1`` the frozen UNet is split by ``tp_shard_params`` (the JAX
+trainer's tensor-parallel placement). The logged loss is the global mean;
+rank 0 alone writes ``metrics.csv``, the checkpoints and the export.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 import time
@@ -35,6 +47,8 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed
+import torch.nn as nn
 
 import dreammat_tpu_torch
 from dreammat_tpu_torch.models.diffusion import convert
@@ -46,6 +60,8 @@ from dreammat_tpu_torch.models.diffusion.scheduler import (
 from dreammat_tpu_torch.models.diffusion.tokenizer import CLIPTokenizer
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
+from dreammat_tpu_torch.parallel import distributed as dist
+from dreammat_tpu_torch.parallel.mesh import Mesh, shard_batch, tp_shard_params
 from dreammat_tpu_torch.utils.base import BaseObject
 from dreammat_tpu_torch.utils.ckpt import save_checkpoint
 from dreammat_tpu_torch.utils.hw import resolve_device
@@ -74,6 +90,21 @@ def zero_controlnet_outputs_(controlnet: ControlNet) -> None:
                  controlnet.controlnet_cond_embedding.conv_out]:
         conv.weight.zero_()
         conv.bias.zero_()
+
+
+class CastForward(nn.Module):
+    """``module`` run on a ``dtype`` cast of its parameters
+    (``torch.func.functional_call``): autograd brings the gradient back to
+    the stored (fp32) parameters through the cast, where DDP's hooks see it."""
+
+    def __init__(self, module: nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.module = module
+        self.dtype = dtype
+
+    def forward(self, *args):
+        params = {n: p.to(self.dtype) for n, p in self.module.named_parameters()}
+        return torch.func.functional_call(self.module, params, args)
 
 
 def _nchw(x, device) -> torch.Tensor:
@@ -125,6 +156,9 @@ class ControlNetTrainer(BaseObject):
         self.schedule = make_schedule(SchedulerConfig(), device=self.device)
         self.num_train_timesteps = SchedulerConfig().num_train_timesteps
         self.unet = self.vae = self.clip = self.controlnet = None
+        self.controlnet_compute = self.controlnet_ddp = None
+        self.mesh: Optional[Mesh] = None
+        self.grad_allreduces = 0
         self.optimizer = self.lr_scheduler = None
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.step = 0
@@ -144,6 +178,8 @@ class ControlNetTrainer(BaseObject):
         self.clip = frozen(lambda: CLIPTextModel(self.clip_cfg), self.dtype)
         self.controlnet = convert.build_on(lambda: ControlNet(self.cnet_cfg), self.device,
                                            torch.float32).train()
+        self.controlnet_compute = CastForward(self.controlnet, self.dtype)
+        self.controlnet_ddp = None
         self.optimizer = self.lr_scheduler = None
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
@@ -189,8 +225,33 @@ class ControlNetTrainer(BaseObject):
     # ------------------------------------------------------------------
     def controlnet_forward(self, noisy, t, ctx, cond, scale: float = 1.0):
         """The ControlNet on a compute-dtype cast of its fp32 parameters."""
-        params = {n: p.to(self.dtype) for n, p in self.controlnet.named_parameters()}
-        return torch.func.functional_call(self.controlnet, params, (noisy, t, ctx, cond, scale))
+        return self.controlnet_compute(noisy, t, ctx, cond, scale)
+
+    def distribute(self, mesh: Optional[Mesh]) -> None:
+        """Train over ``mesh``: the ControlNet wrapped in DDP over the process
+        group (its gradient all-reduces counted in ``grad_allreduces``), the
+        frozen UNet split over the model axis where ``n_model > 1``. Without
+        a process group, one process as before."""
+        if self.controlnet is None:
+            self.init_params()
+        self.mesh = mesh
+        if mesh is None or not torch.distributed.is_initialized():
+            return
+        from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+        from torch.nn.parallel import DistributedDataParallel
+
+        if mesh.n_model > 1:
+            n = tp_shard_params(mesh, self.unet)
+            dreammat_tpu_torch.info("tensor parallel: %d UNet layers split over %d ranks", n,
+                                    mesh.n_model)
+        self.controlnet_ddp = DistributedDataParallel(
+            self.controlnet_compute, device_ids=[self.device] if self.device.type == "cuda" else None)
+
+        def counted_allreduce(state, bucket):
+            self.grad_allreduces += 1
+            return default_hooks.allreduce_hook(state, bucket)
+
+        self.controlnet_ddp.register_comm_hook(None, counted_allreduce)
 
     def encode_prompts(self, prompts: List[str]) -> torch.Tensor:
         ids = torch.as_tensor(self.tokenizer.batch(prompts), dtype=torch.long, device=self.device)
@@ -200,89 +261,110 @@ class ControlNetTrainer(BaseObject):
     def compute_loss(self, batch: Mapping[str, Any],
                      draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """The eps-MSE of the ControlNet-conditioned UNet on ``batch``, with
-        autograd through the ControlNet and the UNet. ``batch``: ``target``
-        [B,H,W,3] in [0,1], ``condition`` [B,H,W,22] (the dataset's NHWC
-        arrays) and ``prompts``. ``draws`` may hold the VAE posterior noise
-        ``vae_eps`` [B,4,h,w], the timesteps ``t`` [B] and the latent noise
-        ``noise`` [B,4,h,w]; otherwise they come from the trainer's generator."""
+        autograd through the ControlNet and the UNet. ``batch``: this rank's rows
+        of the global batch, ``target`` [B,H,W,3] in [0,1], ``condition``
+        [B,H,W,22] (the dataset's NHWC arrays) and ``prompts``. ``draws`` may
+        hold the global batch's (n_data x B rows) VAE posterior noise
+        ``vae_eps`` [.,4,h,w], timesteps ``t`` [.] and latent noise ``noise``
+        [.,4,h,w]; otherwise they come from the trainer's generator. This rank
+        keeps its rows of them."""
         dev, gen = self.device, self.generator
         target = _nchw(batch["target"], dev)
         cond = _nchw(batch["condition"], dev)
-        B = target.shape[0]
+        Bg = target.shape[0] * (self.mesh.n_data if self.mesh else 1)
         f = self.vae_factor
-        lat_shape = (B, self.vae_cfg.latent_channels, target.shape[2] // f, target.shape[3] // f)
+        lat_shape = (Bg, self.vae_cfg.latent_channels, target.shape[2] // f, target.shape[3] // f)
         if draws is None:
             draws = {
                 "vae_eps": torch.randn(lat_shape, generator=gen, device=dev),
-                "t": torch.randint(0, self.num_train_timesteps, (B,), generator=gen, device=dev),
+                "t": torch.randint(0, self.num_train_timesteps, (Bg,), generator=gen, device=dev),
                 "noise": torch.randn(lat_shape, generator=gen, device=dev),
             }
+        draws = shard_batch(self.mesh, draws)
         with torch.no_grad():
             latents = self.vae.encode(target * 2.0 - 1.0, draws["vae_eps"].to(dev)).float()
             t = draws["t"].to(dev).long()
             noise = draws["noise"].to(dev).float()
             noisy = add_noise(self.schedule, latents, noise, t)
         ctx = self.encode_prompts(list(batch["prompts"]))
-        down, mid = self.controlnet_forward(noisy, t, ctx, cond)
+        down, mid = (self.controlnet_ddp or self.controlnet_compute)(noisy, t, ctx, cond, 1.0)
         eps = self.unet(noisy, t, ctx, down_block_additional_residuals=down,
                         mid_block_additional_residual=mid)
         return torch.mean((eps - noise) ** 2)
 
     def train_step(self, batch: Mapping[str, Any],
                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """One optimization step (see ``compute_loss`` for the arguments)."""
+        """One optimization step (see ``compute_loss`` for the arguments); the
+        loss it returns is the global batch's mean."""
         self.optimizer.zero_grad(set_to_none=True)
         lr = self.optimizer.param_groups[0]["lr"]
         loss = self.compute_loss(batch, draws)
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None and self.mesh.n_data > 1:
+            torch.distributed.all_reduce(loss, group=self.mesh.data_group)
+            loss = loss / self.mesh.n_data
         grad_norm = torch.nn.utils.clip_grad_norm_(self.controlnet.parameters(),
                                                    self.cfg.max_grad_norm)
         self.optimizer.step()
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm.detach(), "lr": lr}
+        return {"loss": loss, "grad_norm": grad_norm.detach(), "lr": lr}
 
     # ------------------------------------------------------------------
     def fit(self, dataset, out_dir: str, max_steps: Optional[int] = None,
-            log_every: int = 10) -> Dict[str, Any]:
-        """Train over ``dataset.batches``; logs to the console and
-        ``<out_dir>/logs/metrics.csv``, checkpoints (with the optimizer) every
-        ``checkpointing_steps``, and ends with ``controlnet_final.pt`` (weights
-        and step) and the diffusers export in ``<out_dir>/controlnet``."""
+            log_every: int = 10, mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+        """Train over ``dataset.batches`` (over ``mesh``, see ``distribute``);
+        logs to the console and ``<out_dir>/logs/metrics.csv``, checkpoints
+        (with the optimizer) every ``checkpointing_steps``, and ends with
+        ``controlnet_final.pt`` (weights and step) and the diffusers export in
+        ``<out_dir>/controlnet``. Returns the ControlNet, the step, the
+        export's path and the logged losses."""
         cfg = self.cfg
         if self.controlnet is None:
             self.init_params()
+        if mesh is not None and self.mesh is None:
+            self.distribute(mesh)
         if self.optimizer is None:
             self.make_optimizer()
         log_dir = os.path.join(out_dir, "logs")
-        os.makedirs(log_dir, exist_ok=True)
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
             else (lambda: None)
-        with open(os.path.join(log_dir, "metrics.csv"), "w", newline="") as fcsv:
-            writer = None
-            for batch in dataset.batches(cfg.train_batch_size, epochs=cfg.num_train_epochs):
+        shard = (self.mesh.data_index, self.mesh.n_data) if self.mesh else (0, 1)
+        losses: List[float] = []
+        with contextlib.ExitStack() as stack:
+            fcsv = writer = None
+            if dist.is_rank_zero():
+                os.makedirs(log_dir, exist_ok=True)
+                fcsv = stack.enter_context(
+                    open(os.path.join(log_dir, "metrics.csv"), "w", newline=""))
+            for batch in dataset.batches(cfg.train_batch_size, epochs=cfg.num_train_epochs,
+                                         shard=shard):
                 t0 = time.time()
                 metrics = self.train_step(batch)
                 sync()
                 self.step_seconds.append(time.time() - t0)
                 m = {k: float(v) for k, v in metrics.items()}
+                losses.append(m["loss"])
                 if self.step % log_every == 0 or self.step == max_steps:
                     dreammat_tpu_torch.info("controlnet step %d loss=%.5f grad_norm=%.4g "
                                             "(%.3f s/step)", self.step, m["loss"],
                                             m["grad_norm"], self.step_seconds[-1])
                 row = {"step": self.step, **m, "seconds": self.step_seconds[-1]}
-                if writer is None:
-                    writer = csv.DictWriter(fcsv, fieldnames=list(row))
-                    writer.writeheader()
-                writer.writerow(row)
+                if fcsv is not None:
+                    if writer is None:
+                        writer = csv.DictWriter(fcsv, fieldnames=list(row))
+                        writer.writeheader()
+                    writer.writerow(row)
                 if cfg.checkpointing_steps and self.step % cfg.checkpointing_steps == 0:
                     self.save(os.path.join(out_dir, f"checkpoint-{self.step}"))
                 if max_steps and self.step >= max_steps:
                     break
         self.save(os.path.join(out_dir, "controlnet_final"), with_optimizer=False)
         export = self.export_diffusers(os.path.join(out_dir, "controlnet"))
-        return {"controlnet": self.controlnet, "step": self.step, "export": export}
+        return {"controlnet": self.controlnet, "step": self.step, "export": export,
+                "losses": losses}
 
     def save(self, path: str, with_optimizer: bool = True) -> str:
         """A checkpoint of the ControlNet and the step, with the optimizer's
@@ -294,12 +376,16 @@ class ControlNetTrainer(BaseObject):
     def export_diffusers(self, out_dir: str) -> str:
         """``diffusion_pytorch_model.safetensors`` in the diffusers ControlNet
         layout (fp32), readable by diffusers, the JAX package and the port's
-        guidance (``controlnet_path``)."""
+        guidance (``controlnet_path``); written by rank 0, every rank returns
+        once it is complete."""
         from dreammat_tpu_torch.utils.safetensors_io import save_file
 
-        os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "diffusion_pytorch_model.safetensors")
-        return save_file(self.controlnet.state_dict(), path, metadata={"format": "pt"})
+        if dist.is_rank_zero():
+            os.makedirs(out_dir, exist_ok=True)
+            save_file(self.controlnet.state_dict(), path, metadata={"format": "pt"})
+        dist.barrier("controlnet_export")
+        return path
 
     # ------------------------------------------------------------------
     @torch.no_grad()

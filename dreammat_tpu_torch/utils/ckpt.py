@@ -6,7 +6,8 @@ the port keeps its own torch-native format instead: one ``<path>.pt`` file
 written by ``torch.save`` (tensors moved to the host), read back with
 ``torch.load(weights_only=True)``. The two formats do not read each other;
 weights cross between the packages through the diffusers-layout
-safetensors export.
+safetensors export. Under a process group rank 0 writes and every rank
+then waits at a barrier, as the JAX package's ``save_checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from dreammat_tpu_torch.parallel import distributed as dist
 
 
 def _host(tree: Any) -> Any:
@@ -29,13 +32,16 @@ def _host(tree: Any) -> Any:
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
                     optimizer_state: Optional[Dict[str, Any]], step: int) -> str:
-    """Write ``{"state_dict", "optimizer", "step"}`` to ``<path>.pt``."""
+    """Write ``{"state_dict", "optimizer", "step"}`` to ``<path>.pt`` (rank 0;
+    every rank returns once the file is complete)."""
     path = path if path.endswith(".pt") else path + ".pt"
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"state_dict": _host(state_dict), "optimizer": _host(optimizer_state),
-                "step": int(step)}, tmp)
-    os.replace(tmp, path)
+    if dist.is_rank_zero():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"state_dict": _host(state_dict), "optimizer": _host(optimizer_state),
+                    "step": int(step)}, tmp)
+        os.replace(tmp, path)
+    dist.barrier(f"ckpt:{os.path.basename(path)}")
     return path
 
 

@@ -25,7 +25,10 @@ config. The trial directory receives ``cmd.txt`` and ``parsed.yaml``.
 
 Devices: ``--device`` (default ``cuda``) places everything; ``--gpu N``
 selects ``cuda:N``. Without a GPU the run raises unless ``--device cpu`` is
-given. ``--typecheck`` turns on ``torch.autograd.set_detect_anomaly``;
+given. Under torchrun (or SLURM with ``DREAMMAT_MULTIHOST=1``) each process
+joins the process group (NCCL on the card) on ``cuda:LOCAL_RANK`` unless
+``--gpu`` or ``--device`` names another; rank 0 alone writes ``cmd.txt`` and
+``parsed.yaml``, checkpoints and the shared caches. ``--typecheck`` turns on ``torch.autograd.set_detect_anomaly``;
 ``--profile-dir`` writes a ``torch.profiler`` trace of the setup.
 """
 
@@ -80,13 +83,15 @@ def main(argv=None):
     import dreammat_tpu_torch.data  # noqa: F401 (registry)
     import dreammat_tpu_torch.models  # noqa: F401
     import dreammat_tpu_torch.systems  # noqa: F401
+    from dreammat_tpu_torch.parallel import distributed as dist
     from dreammat_tpu_torch.utils.config import load_config
-    from dreammat_tpu_torch.utils.hw import resolve_device
 
     device = args.device
     if args.gpu is not None and device == "cuda":
         device = f"cuda:{int(args.gpu)}"
-    device = resolve_device(device)
+    # the reference's Lightning DDP plumbing (launch.py:44-59); no-op in one process
+    device = dist.local_device(device)
+    rank, world = dist.maybe_initialize(device)
     if args.verbose:
         import logging
 
@@ -95,13 +100,14 @@ def main(argv=None):
         torch.autograd.set_detect_anomaly(True)
 
     cfg = load_config(args.config, cli_args=extras)
-    dreammat_tpu_torch.info("device: %s", device)
+    dreammat_tpu_torch.info("device: %s (rank %d of %d)", device, rank, world)
     dreammat_tpu_torch.info("trial dir: %s", cfg.trial_dir)
     os.makedirs(cfg.trial_dir, exist_ok=True)
-    with open(os.path.join(cfg.trial_dir, "cmd.txt"), "w") as f:
-        f.write(" ".join(["python"] + (sys.argv if argv is None else ["launch_torch.py", *argv]))
-                + "\n")
-    shutil.copy(args.config, os.path.join(cfg.trial_dir, "parsed.yaml"))
+    if dist.is_rank_zero():
+        with open(os.path.join(cfg.trial_dir, "cmd.txt"), "w") as f:
+            f.write(" ".join(["python"] + (sys.argv if argv is None
+                                           else ["launch_torch.py", *argv])) + "\n")
+        shutil.copy(args.config, os.path.join(cfg.trial_dir, "parsed.yaml"))
 
     find = dreammat_tpu_torch.find
     system = find(cfg.system_type)(cfg.system, device=device)

@@ -24,6 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import playground_2d_torch
 import webapp_torch
+from test_torch_dreammat_step import _numpy_random_init
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -48,18 +49,19 @@ def test_exact_gray_start_overflows_the_vae_gradient():
     import jax
     import jax.numpy as jnp
 
-    from dreammat_tpu.models.diffusion import convert as jconvert
     from dreammat_tpu.models.diffusion.vae import AutoencoderKL as JVAE
     from dreammat_tpu.models.diffusion.vae import VAEConfig as JVAEConfig
     from dreammat_tpu_torch.models.diffusion.convert import random_init_
     from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 
     jvae = JVAE(JVAEConfig.sd())
-    params = jconvert.fast_random_init(
+    # fast_random_init's fill, from numpy; the weights enter the jitted
+    # gradient as an argument (closed over, XLA folds them as constants)
+    params = _numpy_random_init(
         jax.random.PRNGKey(0), lambda: jvae.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 3))))
-    jgrad = jax.jit(jax.grad(lambda x: jnp.sum(jvae.apply(
-        params, x * 2 - 1, jax.random.PRNGKey(2), method=jvae.encode) ** 2)))(
-        jnp.full((1, 128, 128, 3), 0.5))
+    jgrad = jax.jit(jax.grad(lambda x, p: jnp.sum(jvae.apply(
+        p, x * 2 - 1, jax.random.PRNGKey(2), method=jvae.encode) ** 2)))(
+        jnp.full((1, 128, 128, 3), 0.5), params)
     assert not bool(jnp.isfinite(jgrad).all())
 
     vae = AutoencoderKL(VAEConfig.sd())

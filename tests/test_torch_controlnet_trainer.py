@@ -280,7 +280,8 @@ def test_fit_writes_checkpoint_and_export(J, tmp_path):
            "controlnet_dir": str(tmp_path / "out"), "sd_cache_dir": None,
            "checkpointing_steps": 2}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError):
+    # tensor parallelism needs a process group (tests/test_torch_parallel.py trains under one)
+    with pytest.raises(ValueError, match="world size 1"):
         train_controlnet.main(["--config", str(tmp_path / "cfg.json"), "--n-model", "2"],
                               device="cpu")
     out = train_controlnet.main(["--config", str(tmp_path / "cfg.json"), "--max-steps", "3",
@@ -387,13 +388,18 @@ def test_safetensors_io_matches_the_package(tmp_path):
             assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
 
 
-def test_n_model_message_names_a_roadmap_item():
-    import re
+def test_n_model_needs_a_process_group():
+    """``--n-model 2`` in one process raises ``ValueError`` naming the world
+    size, before any model is built; without ``--device cpu`` and without a
+    GPU the device check raises first."""
+    import torch.distributed as tdist
 
     from dreammat_tpu_torch import train_controlnet
 
-    with pytest.raises(NotImplementedError) as err:
-        train_controlnet.main(["--config", "configs/controlnet_train.yaml", "--n-model", "2"])
-    title = re.search(r'ROADMAP queue 1, "([^"]+)"', str(err.value)).group(1)
-    with open("ROADMAP.md") as f:
-        assert f"**{title}.**" in f.read()
+    argv = ["--config", "configs/controlnet_train.yaml", "--n-model", "2"]
+    with pytest.raises(ValueError, match="world size 1"):
+        train_controlnet.main(argv, device="cpu")
+    assert not tdist.is_initialized()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_controlnet.main(argv)

@@ -3,7 +3,10 @@
 Random flax parameters of the JAX models go through the port's weight
 bridge (``dreammat_tpu_torch.models.diffusion.convert``) into the torch
 models, which must load them strictly and give the same outputs on the
-same numpy inputs (relative L2 1e-4; fp32 on the CPU).
+same numpy inputs (relative L2 1e-4; fp32 on the CPU). The JAX side runs
+jitted, and its random weights are filled from numpy
+(``_numpy_random_init``): op by op, the draws and the forwards compile
+once per shape for tens of seconds.
 """
 
 import jax
@@ -12,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from dreammat_tpu.models.diffusion import convert as jconvert
 from dreammat_tpu.models.diffusion.clip_text import CLIPTextConfig as JCLIPCfg
 from dreammat_tpu.models.diffusion.clip_text import CLIPTextModel as JCLIP
 from dreammat_tpu.models.diffusion.controlnet import ControlNet as JControlNet
@@ -26,6 +28,7 @@ from dreammat_tpu_torch.models.diffusion.clip_text import CLIPTextConfig, CLIPTe
 from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNetConfig
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
+from test_torch_dreammat_step import _numpy_random_init
 from torch_threads import one_thread  # noqa: F401
 
 B, h, w = 3, 8, 8
@@ -67,7 +70,7 @@ def inputs():
 @pytest.fixture(scope="module")
 def unet_pair(inputs):
     jm = JUNet(JUNetCfg.tiny())
-    params = jconvert.fast_random_init(jax.random.PRNGKey(1), lambda: jm.init(
+    params = _numpy_random_init(jax.random.PRNGKey(1), lambda: jm.init(
         jax.random.PRNGKey(0), jnp.asarray(inputs["sample"]), jnp.asarray(inputs["t"]),
         jnp.asarray(inputs["ctx"])))
     return jm, params, _load(UNet2DCondition(UNetConfig.tiny()), params, "unet")
@@ -85,9 +88,9 @@ def test_unet_matches_jax(inputs, unet_pair, with_residuals):
         mid = rng.normal(size=(B, 4, 4, 64)).astype(np.float32) * 0.1
         tres, tmid = [_t(r) for r in res], _t(mid)
         res, mid = [jnp.asarray(r) for r in res], jnp.asarray(mid)
-    ref = jm.apply(params, jnp.asarray(inputs["sample"]), jnp.asarray(inputs["t"]),
-                   jnp.asarray(inputs["ctx"]), down_block_additional_residuals=res,
-                   mid_block_additional_residual=mid)
+    ref = jax.jit(jm.apply)(params, jnp.asarray(inputs["sample"]), jnp.asarray(inputs["t"]),
+                            jnp.asarray(inputs["ctx"]), down_block_additional_residuals=res,
+                            mid_block_additional_residual=mid)
     with torch.no_grad():
         got = tm(_t(inputs["sample"]), torch.from_numpy(inputs["t"]).long(),
                  torch.from_numpy(inputs["ctx"]), tres, tmid)
@@ -97,12 +100,12 @@ def test_unet_matches_jax(inputs, unet_pair, with_residuals):
 def test_controlnet_matches_jax(inputs):
     jm = JControlNet(JCNCfg(unet=JUNetCfg.tiny(), conditioning_embedding_channels=(16, 32)))
     args = [jnp.asarray(inputs[k]) for k in ("sample", "t", "ctx", "cond")]
-    params = jconvert.fast_random_init(jax.random.PRNGKey(2),
-                                       lambda: jm.init(jax.random.PRNGKey(0), *args))
+    params = _numpy_random_init(jax.random.PRNGKey(2),
+                                lambda: jm.init(jax.random.PRNGKey(0), *args))
     tm = _load(ControlNet(ControlNetConfig(unet=UNetConfig.tiny(),
                                            conditioning_embedding_channels=(16, 32))),
                params, "controlnet")
-    down, mid = jm.apply(params, *args, 0.8)
+    down, mid = jax.jit(jm.apply)(params, *args, 0.8)
     with torch.no_grad():
         tdown, tmid = tm(_t(inputs["sample"]), torch.from_numpy(inputs["t"]).long(),
                          torch.from_numpy(inputs["ctx"]), _t(inputs["cond"]), 0.8)
@@ -115,12 +118,13 @@ def test_controlnet_matches_jax(inputs):
 def test_vae_encode_matches_jax():
     jm = JVAE(JVAECfg.tiny())
     x = np.random.RandomState(5).uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32)
-    params = jconvert.fast_random_init(jax.random.PRNGKey(3),
-                                       lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    params = _numpy_random_init(jax.random.PRNGKey(3),
+                                lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
     tm = _load(AutoencoderKL(VAEConfig.tiny()), params, "vae")
-    mean, logvar = jm.apply(params, jnp.asarray(x), method=jm.encode_moments)
+    mean, logvar = jax.jit(lambda p, x: jm.apply(p, x, method=jm.encode_moments))(
+        params, jnp.asarray(x))
     key = jax.random.PRNGKey(7)
-    z = jm.apply(params, jnp.asarray(x), key, method=jm.encode)
+    z = jax.jit(lambda p, x, k: jm.apply(p, x, k, method=jm.encode))(params, jnp.asarray(x), key)
     eps = np.asarray(jax.random.normal(key, mean.shape))
     with torch.no_grad():
         tmean, tlogvar = tm.encode_moments(_t(x))
@@ -133,9 +137,9 @@ def test_vae_encode_matches_jax():
 def test_clip_text_matches_jax():
     jm = JCLIP(JCLIPCfg.tiny())
     ids = np.random.RandomState(6).randint(0, 1024, size=(2, 16)).astype(np.int32)
-    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(ids))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(4), jnp.asarray(ids))
     tm = _load(CLIPTextModel(CLIPTextConfig.tiny()), params, "clip")
-    ref = jm.apply(params, jnp.asarray(ids))
+    ref = jax.jit(jm.apply)(params, jnp.asarray(ids))
     with torch.no_grad():
         got = tm(torch.from_numpy(ids).long())
     assert _rel(got.numpy(), ref) < TOL

@@ -50,6 +50,7 @@ from dreammat_tpu_torch.models.mesh_rasterizer import MeshRasterizer
 from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses
+from test_torch_mesh_rasterizer import jit_splitsum  # noqa: F401
 from test_torch_volume import GivenDraws, volume_pair
 from torch_threads import one_thread  # noqa: F401
 
@@ -133,7 +134,7 @@ def _given_hits(jsys):
 
 
 @pytest.mark.parametrize("run", list(RUNS))
-def test_one_step_matches_jax(tmp_path, monkeypatch, run):
+def test_one_step_matches_jax(tmp_path, monkeypatch, jit_splitsum, run):
     config, system_type, over = RUNS[run]
     jsys, jdm, tsys, tdm, state0 = volume_pair(config, PROMPT + over, system_type)
     assert type(tsys.renderer).__name__ == "MeshRasterizer"

@@ -6,19 +6,22 @@
 - The entry points (system, datamodule, guidance, prompt processor,
   renderer, ControlNet trainer, mesh exporter, the texcraft system, the
   SDS and triple guidances, ``launch_torch.py``,
-  ``generate_controlnet_data_torch.py``, ``playground_2d_torch.py``) and
-  the public functions that place tensors (schedule, meshes, BVH, FG LUT,
-  eval-camera rays, the texel rasterizer, the debiasing BERT, the
-  ControlNet dataset generator, the HED and NormalBae loaders) take
+  ``generate_controlnet_data_torch.py``, ``playground_2d_torch.py``,
+  ``batch_generate_torch.py``) and the public functions that place tensors
+  (schedule, meshes, BVH, FG LUT, eval-camera rays, the texel rasterizer,
+  the debiasing BERT, the ControlNet dataset generator, the HED and
+  NormalBae loaders, the process group's ``local_device``) take
   ``device``, default to
   CUDA, and raise without a GPU unless the caller passes ``device="cpu"``
   (``--device cpu``).
 - ``launch_torch.py``, ``generate_controlnet_data_torch.py``,
-  ``playground_2d_torch.py`` and ``webapp_torch.py`` import nothing of JAX
-  either.
+  ``playground_2d_torch.py``, ``webapp_torch.py`` and
+  ``batch_generate_torch.py`` import nothing of JAX either; nor does
+  ``dreammat_tpu_torch/parallel/``.
 - No source file of the port calls PyTorch's fused attention.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -46,22 +49,66 @@ def _port_modules():
     return sorted(mods)
 
 
-def test_imports_nothing_of_jax():
-    mods = _port_modules()
-    assert "dreammat_tpu_torch.ops.attention" in mods and "dreammat_tpu_torch.ops.bvh" in mods
-    code = (
-        "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
-        "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(repr(bad))\n"
-    )
+@pytest.fixture(scope="module")
+def fresh(tmp_path_factory):
+    """One fresh interpreter (without ``tests/conftest.py``, which imports
+    JAX) runs every check of a script in turn and prints one JSON line per
+    check: what it printed and the JAX modules loaded by then. A module
+    whose import pulls JAX in shows at the first check that imports it."""
+    tmp = tmp_path_factory.mktemp("fresh")
+    (tmp / "jobs.json").write_text('[{"mesh": "m.obj", "prompt": "x", "max_steps": 1}]')
+    launch_args = ["--config", "configs/dreammat_tiny.yaml", "--train",
+                   "system.prompt_processor.prompt=a red apple",
+                   "system.geometry.shape_init=procedural:sphere"]
+    steps = [
+        ("modules", "import importlib\n"
+                    f"for m in {_port_modules()!r}:\n"
+                    "    importlib.import_module(m)\n"),
+        ("launch_torch", "import launch_torch\n"
+                         "for extra in ([], ['--gpu', '0']):\n"
+                         f"    said.append(run(launch_torch.main, {launch_args!r} + extra))\n"
+                         "said.append('dreammat_tpu_torch' in sys.modules)\n"),
+        ("generate_controlnet_data_torch",
+         "import generate_controlnet_data_torch as cli\n"
+         f"said.append(run(cli.main, ['--meshes-dir', {str(tmp)!r}, "
+         f"'--out', {str(tmp / 'out')!r}]))\n"
+         "import dreammat_tpu_torch.data.controlnet_dataset\n"),
+        ("playground_2d_torch", "import playground_2d_torch as app\n"
+                                "said.append(run(app.main, ['--prompt', 'x', '--steps', '1', "
+                                "'--out', 'outputs/none']))\n"),
+        ("webapp_torch", "import webapp_torch\n"),
+        ("batch_generate_torch", "import batch_generate_torch as app\n"
+                                 f"said.append(run(app.main, ['--jobs', {str(tmp / 'jobs.json')!r}, "
+                                 f"'--shard', '0/1', '--out', {str(tmp)!r}]))\n"),
+    ]
+    code = ("import json, sys\n"
+            "def run(main, argv):\n"  # with a GPU the entry points would run: not here
+            f"    if {torch.cuda.is_available()!r}:\n"
+            "        return 'skipped'\n"
+            "    try:\n"
+            "        main(argv)\n"
+            "        return 'ran'\n"
+            "    except RuntimeError as e:\n"
+            "        return 'raised CUDA' if 'CUDA' in str(e) else 'raised'\n")
+    for name, body in steps:
+        code += ("said = []\n" + body
+                 + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+                 + f"print(json.dumps([{name!r}, said, bad]), flush=True)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("[")]
+    return {name: (said, bad) for name, said, bad in lines}
+
+
+def test_imports_nothing_of_jax(fresh):
+    mods = _port_modules()
+    assert "dreammat_tpu_torch.ops.attention" in mods and "dreammat_tpu_torch.ops.bvh" in mods
+    assert {"dreammat_tpu_torch.parallel.distributed", "dreammat_tpu_torch.parallel.mesh"} <= \
+        set(mods)
+    assert fresh["modules"] == ([], [])
 
 
 def _tiny_cfg():
@@ -111,7 +158,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(entry, cpu_system):
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
-    assert build(device="cpu").device.type == "cpu"
+    # the fixture built the system on the CPU already
+    assert (sys_cpu if entry == "system" else build(device="cpu")).device.type == "cpu"
 
 
 def _default_device_calls(tmp_path):
@@ -119,6 +167,7 @@ def _default_device_calls(tmp_path):
     from dreammat_tpu_torch.models import debias, detectors, exporter, mesh
     from dreammat_tpu_torch.models.diffusion import scheduler
     from dreammat_tpu_torch.ops import bvh, envmap
+    from dreammat_tpu_torch.parallel import distributed
 
     obj = tmp_path / "tri.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\nf 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
@@ -139,6 +188,7 @@ def _default_device_calls(tmp_path):
         "build_bert_mlm": lambda **kw: debias.build_bert_mlm(None, size="tiny", **kw),
         "load_hed": lambda **kw: detectors.load_hed(None, **kw),
         "load_normalbae": lambda **kw: detectors.load_normalbae(None, **kw),
+        "local_device": lambda **kw: distributed.local_device(**kw),
         "generate_dataset_for_mesh": lambda **kw: controlnet_dataset.generate_dataset_for_mesh(
             str(obj), str(tmp_path / "data"), n_views=1, n_envs=1, resolution=4,
             material_cfg={"environment_texture": str(tmp_path / "none"), "n_environments": 1,
@@ -151,7 +201,8 @@ def _default_device_calls(tmp_path):
                                   "mesh_from_numpy", "load_mesh", "build_bvh",
                                   "compute_fg_lut", "camera_rays_and_matrices",
                                   "rasterize_uv_texels", "build_bert_mlm",
-                                  "generate_dataset_for_mesh", "load_hed", "load_normalbae"])
+                                  "generate_dataset_for_mesh", "load_hed", "load_normalbae",
+                                  "local_device"])
 def test_functions_default_to_cuda(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -161,84 +212,33 @@ def test_functions_default_to_cuda(name, tmp_path):
     assert call(device="cpu") is not None
 
 
-def test_launch_torch_needs_cuda_and_imports_nothing_of_jax():
+def test_launch_torch_needs_cuda_and_imports_nothing_of_jax(fresh):
     """``launch_torch.main`` without ``--device cpu`` raises for want of a
     GPU (also with ``--gpu 0``), after importing the port: no JAX module is
     loaded by then."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    code = (
-        "import sys\n"
-        "import launch_torch\n"
-        "args = ['--config', 'configs/dreammat_tiny.yaml', '--train',\n"
-        "        'system.prompt_processor.prompt=a red apple',\n"
-        "        'system.geometry.shape_init=procedural:sphere']\n"
-        "for extra in ([], ['--gpu', '0']):\n"
-        "    try:\n"
-        "        launch_torch.main(args + extra)\n"
-        "        print('ran')\n"
-        "    except RuntimeError as e:\n"
-        "        print('raised', 'CUDA' in str(e))\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print('dreammat_tpu_torch' in sys.modules, repr(bad))\n"
-    )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-3:] == ["raised True", "raised True", "True []"]
+    assert fresh["launch_torch"] == (["raised CUDA", "raised CUDA", True], [])
 
 
-def test_generate_controlnet_data_torch_needs_cuda_and_imports_nothing_of_jax(tmp_path):
+def test_generate_controlnet_data_torch_needs_cuda_and_imports_nothing_of_jax(fresh):
     """The dataset generator's command line without ``--device cpu`` raises
     for want of a GPU, after importing the port: no JAX module is loaded."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    code = (
-        "import sys\n"
-        "import generate_controlnet_data_torch as cli\n"
-        "try:\n"
-        f"    cli.main(['--meshes-dir', {str(tmp_path)!r}, '--out', {str(tmp_path / 'out')!r}])\n"
-        "    print('ran')\n"
-        "except RuntimeError as e:\n"
-        "    print('raised', 'CUDA' in str(e))\n"
-        "import dreammat_tpu_torch.data.controlnet_dataset\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(repr(bad))\n"
-    )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-2:] == ["raised True", "[]"]
+    assert fresh["generate_controlnet_data_torch"] == (["raised CUDA"], [])
 
 
-@pytest.mark.parametrize("script", ["playground_2d_torch", "webapp_torch"])
-def test_new_root_scripts_import_nothing_of_jax(script):
-    """The playground and the web app import no module of JAX; the
-    playground's ``main`` without ``--device cpu`` raises for want of a GPU,
-    after importing the port."""
+@pytest.mark.parametrize("script", ["playground_2d_torch", "webapp_torch",
+                                    "batch_generate_torch"])
+def test_new_root_scripts_import_nothing_of_jax(script, fresh):
+    """The playground, the web app and the batch generator import no module
+    of JAX; the playground's and the batch generator's ``main`` without
+    ``--device cpu`` raise for want of a GPU, after importing the port."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
-    code = f"import sys\nimport {script} as app\n"
-    if script == "playground_2d_torch":
-        code += ("try:\n"
-                 "    app.main(['--prompt', 'x', '--steps', '1', '--out', 'outputs/none'])\n"
-                 "    print('ran')\n"
-                 "except RuntimeError as e:\n"
-                 "    print('raised', 'CUDA' in str(e), 'dreammat_tpu_torch' in sys.modules)\n")
-    code += f"print(repr(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})))\n"
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    lines = out.stdout.strip().splitlines()
-    assert lines[-1] == "[]"
-    if script == "playground_2d_torch":
-        assert lines[-2] == "raised True True"
+    said = [] if script == "webapp_torch" else ["raised CUDA"]
+    assert fresh[script] == (said, [])
 
 
 def test_no_fused_attention_call():
