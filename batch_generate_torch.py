@@ -14,8 +14,10 @@ several processes and the group has one. Each job is a
 ``launch_torch.main(["--train", ...])`` on this rank's device
 (``cuda:LOCAL_RANK`` for the default ``--device cuda``), run alone
 (``distributed.independent``): its caches, checkpoints and barriers are its
-own, since another rank runs another job. Arguments it does not know go to
-``launch_torch.py``.
+own, since another rank runs another job. Job i writes its trial under
+``<out>/<name>/<tag>@job<i>`` (the config's tag, the job's index in place of
+the timestamp), so two jobs of one prompt keep two trials. Arguments it
+does not know go to ``launch_torch.py``.
 
 jobs.json: [{"mesh": "path.obj", "prompt": "...", "scale": 0.8,
              "max_steps": 3000}, ...]
@@ -66,6 +68,7 @@ def main(argv=None):
             f"trainer.max_steps={job.get('max_steps', 3000)}",
             f"exp_root_dir={args.out}",
             "use_timestamp=false",
+            f"timestamp=@job{i}",
         ] + extras
         with dist.independent():
             results.append(launch_torch.main(job_argv))

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, twelve to sixteen minutes
+    python3 chip_smoke.py                 # everything, fourteen to seventeen minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -37,7 +37,9 @@ which fails the run on any error:
    agree bit for bit. The bound counts the pairs the kernel tested (and,
    as a yardstick fixed across versions, all R x T pairs) at
    ``CAST_OPS_PER_PAIR`` rounded fp32 operations each, over the card's
-   instruction rate (132 SMs x 128 lanes x ``clocks.max.sm``).
+   instruction rate (132 SMs x 128 lanes x ``clocks.max.sm``). Kernel E
+   (the BVH walk) against ``cast_rays_bvh_plain`` on the same two casts,
+   bit for bit on 65,536 rays of each (``walk_case``).
 6. Main path 1: DreamMat material generation (``configs/dreammat.yaml``,
    tables regime, SD2.1 width, random weights) through the user's entry
    points: system, datamodule setup (prerender), ``fit`` for a few steps.
@@ -281,10 +283,10 @@ which fails the run on any error:
 17. Main path 12: more than one process (``drive_parallel``), under
    ``outputs/chip_smoke_parallel/``. First torchrun's variables set in this
    process for a world of one: ``train_controlnet.main`` joins an NCCL
-   group (asserted) and trains 3 steps at batch 32, the ControlNet in
-   ``DistributedDataParallel``, whose gradient all-reduces the trainer's
-   comm hook counts (none would be reported and an explicit all-reduce and
-   barrier run instead); kernels A, C and D exactly as path 2, the losses
+   group (asserted) and trains 3 steps at batch 32 (one data rank, so no
+   ``DistributedDataParallel`` and no gradient all-reduce: an explicit
+   all-reduce and barrier check the group instead); kernels A, C and D
+   exactly as path 2, the losses
    within ``PARALLEL_LOSS_RTOL`` of path 2's. Then two ranks spawned on the
    one card over gloo (NCCL refuses two ranks on one device;
    ``parallel_rank``): the SD2.1 UNet split over both by
@@ -302,7 +304,24 @@ which fails the run on any error:
    the export at 256^2): each job once, in its shard, with its files. The
    same runs go on the CPU at tiny size with ``drive_parallel(work,
    device="cpu", size="tiny", torus=(24, 12))``.
-18. A ``{"kernels": [...]}`` line, the card's line, and last
+18. Main path 13: DreamMat on a mesh above ``DENSE_CAST_MAX_TRIS`` = 2^22
+   triangles (``drive_big_mesh``, ``phase_big_mesh``), under
+   ``outputs/chip_smoke_big_mesh/``: the torus of ``BIG_TORUS`` (5,242,880
+   triangles) written as a .glb with its own (u, v) layout, then
+   ``launch_torch.main(["--config", "configs/dreammat.yaml", "--train",
+   ...])`` at SD2.1 width, 4 views, 3 steps, ``fastpath_check: auto``, 2
+   test views, the 2048^2 export. Every cast must go through kernel E (the
+   BVH walk; its launches counted by stage: G-buffers, vertex bake, gate,
+   test renders, texel bake), none through kernel B; the native builder
+   must have built both BVHs; the files and the OBJ's counts are checked.
+   Then kernel E bit for bit against ``cast_rays_bvh_plain`` on 65,536 rays
+   of each of a 512^2 view, a vertex-bake chunk, the gate's shadow rays and
+   the texel bake, with its time, nodes and pairs a ray and bound
+   (``walk_bound``). The same run goes on the CPU at tiny size, the export
+   at 64^2, with ``drive_big_mesh(work, device="cpu", size="tiny")`` once
+   ``ops.bvh.DENSE_CAST_MAX_TRIS`` is set below the tiny torus's 576
+   triangles.
+19. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -603,14 +622,17 @@ def phase_ray_cast() -> dict:
         # the pairs the kernel's cull keeps, counted by the kernel
         pairs_t = torch.zeros(1, dtype=torch.int64, device="cuda")
         got = bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri, pairs_out=pairs_t)
+        # the plain version once, timed by CUDA events around the call
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         ref = bvh_lib.cast_rays_plain(bvh, o, d, chunk=2048, tri_data=tri)
+        ev[1].record()
         torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
         diff = cast_disagreement(got, ref)
         if any(diff.values()):
             raise AssertionError(f"ray cast {label}: kernel and plain version differ: {diff}")
         ms = cuda_ms(lambda: bvh_lib.cast_rays_dense(bvh, o, d, tri_data=tri), 3)
-        plain_ms = cuda_ms(lambda: bvh_lib.cast_rays_plain(bvh, o, d, chunk=2048, tri_data=tri), 1,
-                           warmup=0)
         pairs = float(pairs_t.item())
         bounds = cast_bounds(pairs, R, T, clock)
         rows.append(dict(label=label, R=R, T=T, pairs=pairs, **diff, ms=ms, plain_ms=plain_ms,
@@ -624,7 +646,11 @@ def phase_ray_cast() -> dict:
             f"({bounds['by']}, {CAST_OPS_PER_PAIR} ops per tested pair at {clock / 1e6:.0f} MHz), "
             f"over all R x T pairs {bounds['bound_all_pairs_ms']:.3f} ms")
         del got, ref
-    return {"rows": rows, "clock": clock}
+    # kernel E (the BVH walk) on the same rays: the main paths walk only
+    # above 2^22 triangles (main path 13), so this is its quick check
+    packed = bvh_lib.pack_bvh(bvh)
+    walk_rows = [walk_case(label, bvh, packed, o, d) for label, o, d in ray_cast_cases(mesh)]
+    return {"rows": rows, "clock": clock, "walk_rows": walk_rows}
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -976,22 +1002,24 @@ def check_file(path: str, magic: bytes, min_bytes: int, tail: bytes = b"") -> in
 
 
 class StageLaunches:
-    """Kernel B's launches and the seconds inside named calls: each wrapped
-    function adds the caster's launches made during the call, and the
-    call's seconds up to a synchronize, to its stage."""
+    """A caster's launches and the seconds inside named calls: each wrapped
+    function adds the launches made during the call (``counter()``, kernel
+    B's count by default), and the call's seconds up to a synchronize, to
+    its stage."""
 
-    def __init__(self):
+    def __init__(self, counter=None):
+        from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+        self.counter = counter or (lambda: bvh_lib.cast_rays_dense.launches)
         self.counts, self.seconds, self._undo = {}, {}, []
 
     def wrap(self, owner, name: str, stage: str):
-        from dreammat_tpu_torch.ops import bvh as bvh_lib
-
         fn = getattr(owner, name)
         self.counts.setdefault(stage, 0)
         self.seconds.setdefault(stage, 0.0)
 
         def wrapper(*a, **k):
-            before = bvh_lib.cast_rays_dense.launches
+            before = self.counter()
             t0 = time.time()
             try:
                 return fn(*a, **k)
@@ -999,7 +1027,7 @@ class StageLaunches:
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
                 self.seconds[stage] += time.time() - t0
-                self.counts[stage] += bvh_lib.cast_rays_dense.launches - before
+                self.counts[stage] += self.counter() - before
 
         setattr(owner, name, wrapper)
         self._undo.append((owner, name, fn))
@@ -4522,8 +4550,7 @@ def drive_parallel(work: str, device: str = "cuda", size: str = "sd21", steps: i
         backend = tdist.get_backend()
         allreduces = trainer.grad_allreduces
         explicit = None
-        if allreduces == 0:  # DDP skipped its all-reduce: one explicit all-reduce and barrier
-            dreammat_tpu_torch.warn("path 12: DDP ran no gradient all-reduce at world size 1")
+        if allreduces == 0:  # one data rank, so no DDP: one explicit all-reduce and barrier
             x = torch.ones(4, device=trainer.device)
             tdist.all_reduce(x)
             tdist.barrier()
@@ -4662,6 +4689,292 @@ def phase_parallel(ref_losses: list, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 13: DreamMat on a mesh above 2^22 triangles (kernel E)
+# ---------------------------------------------------------------------------
+
+# the torus of main path 13, (nu, nv) quads: 2 nu nv triangles, 5,242,880 at
+# SD2.1 width (1.25 x DENSE_CAST_MAX_TRIS); the CPU form's is tiny and its
+# test lowers the threshold
+BIG_TORUS = {"sd21": (2048, 1280), "tiny": (24, 12)}
+# fp32 operations of the walk (bvh_traverse.cu, as cast_rays_bvh_plain
+# rounds them): a slab test 25 (6 subtractions, 6 products, 6 per-axis min
+# and max, 4 across the axes, the max with 0, 2 compares); a Moller-Trumbore
+# test 53 (the two cross products 18, three dots 15, the scalings 3, the
+# division 1, the origin's offset 3, |det| and its compare 2, u + v 1 and
+# 5 compares). The H100's published fp32 rate counts an FMA as two
+# operations; the walk rounds every operation and issues no FMA.
+WALK_SLAB_OPS = 25
+WALK_MT_OPS = 53
+PEAK_FP32_FLOPS = 67e12
+WALK_CHECK_RAYS = 65536
+
+
+class CasterCalls:
+    """Kernel E's and kernel B's launches on the card; on the CPU, where no
+    kernel launches, the calls of their plain versions (wrapped while the
+    object is open)."""
+
+    def __init__(self, cuda: bool):
+        from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+        self.bvh_lib, self.cuda, self.calls, self._undo = bvh_lib, cuda, {}, []
+        if not cuda:
+            for name in ("cast_rays_bvh_plain", "cast_rays_plain"):
+                fn = getattr(bvh_lib, name)
+                self.calls[name] = 0
+
+                def counted(*a, _fn=fn, _name=name, **k):
+                    self.calls[_name] += 1
+                    return _fn(*a, **k)
+
+                setattr(bvh_lib, name, counted)
+                self._undo.append((name, fn))
+
+    def walk(self) -> int:
+        return (self.bvh_lib.cast_rays_bvh.launches if self.cuda
+                else self.calls["cast_rays_bvh_plain"])
+
+    def dense(self) -> int:
+        return (self.bvh_lib.cast_rays_dense.launches if self.cuda
+                else self.calls["cast_rays_plain"])
+
+    def close(self):
+        for name, fn in self._undo:
+            setattr(self.bvh_lib, name, fn)
+
+
+def walk_bound(nodes: float, pairs: float, R: int, N: int, T: int) -> dict:
+    """Kernel E's bound (ms): the larger of its fp32 operations (the nodes it
+    visited times a slab test's, the pairs it tested times
+    Moller-Trumbore's) over the fp32 rate and the bytes of the rays in, the
+    results out and the nodes and triangles the walk touched read once, over
+    the memory rate. A node or triangle is touched at most once a visit or
+    test, so the run's counts cap the N nodes and T triangles of the BVH."""
+    t_ops = (nodes * WALK_SLAB_OPS + pairs * WALK_MT_OPS) / PEAK_FP32_FLOPS
+    t_bytes = (R * (24 + 16) + min(nodes, N) * 32 + min(pairs, T) * 48) / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def walk_case(label: str, bvh, packed, o, d) -> dict:
+    """Kernel E on every ray of (o, d): the nodes it visits and the pairs it
+    tests, its time (CUDA events after a warm-up), its bound; and on
+    ``WALK_CHECK_RAYS`` rays spread over them, E against the plain walk,
+    which must agree bit for bit, each timed on those rays."""
+    n_check = WALK_CHECK_RAYS
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    o, d = o.float().contiguous(), d.float().contiguous()
+    R, N, T = o.shape[0], packed.nodes.shape[0], packed.tris.shape[0]
+    ctr = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed, counters_out=ctr)
+    ms = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed), 3)
+    sel = torch.arange(min(n_check, R), device="cuda") * max(R // n_check, 1)
+    os_, ds = o[sel].contiguous(), d[sel].contiguous()
+    ms_checked = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, os_, ds, packed=packed), 3)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = bvh_lib.cast_rays_bvh_plain(bvh, os_, ds)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    diff = cast_disagreement({k: v[sel] for k, v in got.items()}, ref)
+    if any(diff.values()):
+        raise AssertionError(f"walk {label}: kernel E and the plain walk differ: {diff}")
+    nodes, pairs = (float(x) for x in ctr.tolist())
+    row = dict(label=label, R=R, N=N, T=T, checked=int(sel.shape[0]), **diff, nodes=nodes,
+               pairs=pairs, nodes_per_ray=nodes / R, pairs_per_ray=pairs / R, ms=ms,
+               ms_checked=ms_checked, plain_ms_checked=plain_ms,
+               hit_frac=float(got["hit"].float().mean()), **walk_bound(nodes, pairs, R, N, T))
+    log(f"walk {label}: R={R} N={N} T={T} hits {row['hit_frac']:.3f}; {row['checked']} rays "
+        f"bit for bit equal to the plain walk | {row['nodes_per_ray']:.1f} nodes and "
+        f"{row['pairs_per_ray']:.2f} pairs a ray | kernel E {ms:.3f} ms ({R / ms / 1e3:.1f} "
+        f"Mrays/s), on the checked rays {ms_checked:.3f} ms, plain {plain_ms:.1f} ms | bound "
+        f"{row['bound_ms']:.4f} ms ({row['by']})")
+    return row
+
+
+def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
+    """Main path 13: ``launch_torch.py --train`` of ``configs/dreammat.yaml``
+    on a self-occluding torus above ``DENSE_CAST_MAX_TRIS`` triangles
+    (``BIG_TORUS``), written as a .glb with its own (u, v) layout
+    (``torus_grid_arrays``: the export needs no unwrap): 4 fixed views, 3
+    steps, ``fastpath_check: auto``, 2 test views and the export
+    (the config's 2048^2; 64^2 at ``size="tiny"``).
+    Every cast of the run must walk the BVH (kernel E on the card: its
+    launches by stage; kernel B none), the native builder must have built
+    both BVHs (the mesh's, the UV plane's), the losses be finite and the
+    files present with the mesh's counts. Returns what was measured, the
+    system and data module (``views``) and the texel bake's rays
+    (``texel``); raises on a failed check."""
+    import shutil
+
+    import launch_torch
+    from dreammat_tpu_torch.data.datamodule import RandomCameraDataModule
+    from dreammat_tpu_torch.models import exporter as exporter_lib
+    from dreammat_tpu_torch.models import mesh as mesh_lib
+    from dreammat_tpu_torch.models.renderer import RaytraceRenderer
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    cuda = torch.device(device).type == "cuda"
+    config = "configs/dreammat.yaml" if size == "sd21" else "configs/dreammat_tiny.yaml"
+    steps, views, test_views = 3, 4, 2
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.time()
+    v, f, vt = mesh_lib.torus_grid_arrays(0.7, 0.28, *BIG_TORUS[size])
+    glb = mesh_lib.write_glb(os.path.join(work, "torus.glb"), v, f, vt)
+    res = {"seconds": {"write_glb": time.time() - t0}, "vertices": len(v), "triangles": len(f)}
+    del v, vt
+    argv = ["--config", config, "--train", "--device", device,
+            *main_overrides(views, f"mesh:{glb}", "1.0"), f"trainer.max_steps={steps}",
+            f"data.n_test_views={test_views}", f"exp_root_dir={work}", "use_timestamp=false"]
+    if size == "tiny":  # dreammat.yaml's tables regime (the tiny config shades by MC)
+        argv += ["system.material.use_prefiltered=true", "system.exporter.texture_size=64"]
+    builds, texel = [], {}
+    real_build, real_texel_rays = bvh_lib.build_bvh, exporter_lib.uv_texel_rays
+
+    def timed_build(*a, **k):
+        t = time.time()
+        out = real_build(*a, **k)
+        builds.append({"triangles": int(out.tri_id.shape[0]), "seconds": time.time() - t})
+        return out
+
+    def kept_texel_rays(*a, **k):
+        texel["rays"] = real_texel_rays(*a, **k)
+        return texel["rays"]
+
+    calls = CasterCalls(cuda)
+    stages = StageLaunches(counter=calls.walk)
+    stages.wrap(RaytraceRenderer, "build_gbuffers_batched", "gbuffers")
+    stages.wrap(vis_lib, "bake_vertex_visibility", "vertex_bake")
+    stages.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
+    stages.wrap(RaytraceRenderer, "build_gbuffer", "test_renders")
+    stages.wrap(exporter_lib, "rasterize_uv_texels", "texel_bake")
+    bvh_lib.build_bvh, exporter_lib.uv_texel_rays = timed_build, kept_texel_rays
+    for fn in (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
+               attn.flash_attention_bwd_dkv, bvh_lib.cast_rays_dense, bvh_lib.cast_rays_bvh):
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        out = launch_torch.main(argv)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        stages.restore()
+        bvh_lib.build_bvh, exporter_lib.uv_texel_rays = real_build, real_texel_rays
+        calls.close()
+    res["seconds"]["launch"] = time.time() - t0
+    system, dm, trial = out["system"], out["datamodule"], out["trial_dir"]
+    ren = system.renderer
+    res["walk_by_stage"], res["stage_s"] = dict(stages.counts), dict(stages.seconds)
+    res["walk"], res["dense"] = calls.walk(), calls.dense()
+    res["bvh_builds"] = builds
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    kernel_a = attn.flash_attention_fwd.launches
+    bwd = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
+
+    checks = {
+        "mesh above the dense caster's threshold": bvh_lib.uses_walk(ren.bvh)
+        and isinstance(ren.tri_data, bvh_lib.PackedBVH) and len(f) > bvh_lib.DENSE_CAST_MAX_TRIS,
+        "native BVH builder": bvh_lib._NATIVE["lib"] is not None and len(builds) == 2,
+        "the walk in every stage": all(n > 0 for n in stages.counts.values()),
+        "kernel B never": res["dense"] == 0,
+        "gate ran": dm.gate.get("rmse") is not None and dm.gate.get("grad_cos") is not None,
+        "losses finite": len(system.step_losses) == steps
+        and all(math.isfinite(x) for x in system.step_losses),
+    }
+    if cuda:
+        checks["kernel A 46 a step, no backward"] = kernel_a == 46 * steps and bwd == 0
+    save = os.path.join(trial, "save")
+    sizes = {}
+    for i in range(test_views):
+        path = os.path.join(save, f"it{steps}-test", f"{i}.png")
+        sizes[os.path.relpath(path, save)] = check_file(path, b"\x89PNG\r\n\x1a\n", 100)
+    sizes["gif"] = check_file(os.path.join(save, f"it{steps}-test.gif"), b"GIF89a", 100, b";")
+    exp = os.path.join(save, "export")
+    for name in ("texture_kd.jpg", "texture_metallic.jpg", "texture_roughness.jpg"):
+        sizes[name] = check_file(os.path.join(exp, name), b"\xff\xd8\xff", 100, b"\xff\xd9")
+    sizes["model.mtl"] = check_file(os.path.join(exp, "model.mtl"), b"newmtl model", 100)
+    with open(os.path.join(exp, "model.obj"), "rb") as fh:
+        text = b"\n" + fh.read()
+    sizes["model.obj"] = len(text) - 1
+    got = {k: text.count(b"\n" + k.encode() + b" ") for k in ("v", "vt", "vn", "f")}
+    V = res["vertices"]
+    checks["model.obj counts"] = got == {"v": V, "vt": V, "vn": V, "f": len(f)}
+    del text
+    gate = dm.gate
+    res.update(files=sizes, obj_counts=got, gate={k: gate.get(k) for k in (
+        "occlusion", "rmse", "grad_cos", "decision", "seconds")},
+        prerender_s=dict(dm.data.seconds), step_s=list(system.step_seconds),
+        step_kinds=list(system.step_kinds), losses=list(system.step_losses),
+        test_s=list(system.test_seconds), export_s=dict(system.exporter.seconds),
+        counts={"flash_attn_fwd": kernel_a, "ray_cast": res["dense"],
+                "bvh_traverse": res["walk"]})
+    builds_txt = "; ".join(f"{b_['triangles']} triangles in {b_['seconds']:.2f}s" for b_ in builds)
+    log(f"big mesh: launch_torch.py --train on the torus .glb ({V} vertices, {len(f)} "
+        f"triangles) in {res['seconds']['launch']:.1f}s; BVH builds {builds_txt}; "
+        f"{'kernel E' if cuda else 'plain walk'} by stage {stages.counts}, dense caster "
+        f"{res['dense']}; kernel A {kernel_a}; peak {res['peak_gb']} GB")
+    log(f"big mesh: prerender {', '.join(f'{k} {x:.3f}s' for k, x in dm.data.seconds.items())}; "
+        f"gate: self-occlusion {gate['occlusion']}, RMSE {gate['rmse']}, grad-cos "
+        f"{gate['grad_cos']}, {gate['decision']} in {gate['seconds']:.2f}s; steps "
+        f"{', '.join(f'{k} {x:.4f}s' for k, x in zip(system.step_kinds, system.step_seconds))}; "
+        f"losses {', '.join(f'{x:.6g}' for x in system.step_losses)}; test renders "
+        f"{', '.join(f'{x:.3f}s' for x in system.test_seconds)}; export "
+        f"{', '.join(f'{k} {x:.3f}s' for k, x in system.exporter.seconds.items())}; stage "
+        f"seconds {', '.join(f'{k} {x:.2f}' for k, x in stages.seconds.items())}; files {sizes}, "
+        f"model.obj {got}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"path 13: {bad}")
+    res["views"] = (system, dm)
+    res["texel"] = texel.get("rays")
+    return res
+
+
+def phase_big_mesh() -> dict:
+    """Main path 13 on the card (``drive_big_mesh`` at SD2.1 width), then
+    kernel E against the plain walk, bit for bit, at the four shapes of the
+    path: a 512^2 view, the first vertex-bake chunk in ``bake_rays`` order
+    (``ray_cast_cases``), the gate's shadow rays (as main path 3 draws them)
+    and the texel bake of the export."""
+    import shutil
+
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+    from dreammat_tpu_torch.utils import ops as uops
+
+    work = os.path.join("outputs", "chip_smoke_big_mesh")
+    res = drive_big_mesh(work)
+    system, dm = res.pop("views")
+    ubvh, uo, ud = res.pop("texel")
+    ren, mat = system.renderer, system.material
+    t0 = time.time()
+    rows = [walk_case(label, ren.bvh, ren.tri_data, o, d) for label, o, d in ray_cast_cases(ren.mesh)]
+    gb = dm.data.gbuffers[0]
+    P = gb.fg_pos.shape[0]
+    r = torch.full((P, 1), 0.3, device="cuda")
+    refl = uops.reflect(gb.fg_viewdir, gb.fg_normal)
+    dirs = torch.cat([mat.sample_diffuse_directions(gb.fg_normal),
+                      mat.sample_specular_directions(refl, r)], dim=1).reshape(-1, 3)
+    pts = gb.fg_pos[:, None].expand(-1, dirs.shape[0] // P, 3).reshape(-1, 3)
+    rows.append(walk_case(f"gate shadow rays ({P} px x {dirs.shape[0] // P})", ren.bvh,
+                          ren.tri_data, pts + dirs * 1e-5, dirs))
+    del pts, dirs
+    rows.append(walk_case(f"texel bake {int(uo.shape[0] ** 0.5)}^2", ubvh,
+                          bvh_lib.cast_data(ubvh), uo, ud))
+    res["seconds"]["checks"] = time.time() - t0
+    res["rows"] = rows
+    del system, dm, ren, mat, gb, ubvh, uo, ud
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4740,7 +5053,7 @@ def main() -> int:
                 "ray_cast": None}
     r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
-    rest_res = single_res = edit_res = par_res = None
+    rest_res = single_res = edit_res = par_res = big_res = None
     s_counts = dict(d_counts)
     e_counts = dict(d_counts)
     if not args.kernels_only:
@@ -4768,6 +5081,7 @@ def main() -> int:
         edit_res = timed("edit", phase_edit)
         e_counts = edit_res["counts"]
         par_res = timed("parallel", phase_parallel, cn_res["losses"], args.seed)
+        big_res = timed("big_mesh", phase_big_mesh)
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -4903,7 +5217,8 @@ def main() -> int:
                               "single_image_by_run": single_res and {
                                   run: r["launches"]["ray_cast"]
                                   for run, r in single_res["runs"].items()},
-                              "edit_capture": e_counts["ray_cast"]},
+                              "edit_capture": e_counts["ray_cast"],
+                              "big_mesh": big_res and big_res["dense"]},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff",
                                         "pairs_morton", "bound_tested_ms", "bound_morton_ms")
@@ -4922,6 +5237,29 @@ def main() -> int:
          "work": f"R={b['R']} rays x T={b['T']} triangles fp32, {b['pairs']:.4g} pairs "
                  f"tested after the cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
+    # kernel E: the rows of main path 13's mesh (of the kernel phase's
+    # icosphere with --kernels-only); its largest shape in the line
+    walk_rows = big_res["rows"] if big_res else cast_res["walk_rows"]
+    e = max(walk_rows, key=lambda r: r["R"])
+    kernels.append({
+        "name": "bvh_traverse", "route": "cuda",
+        "source": "dreammat_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "dreammat_tpu/ops/bvh.py:327",
+        "replaces_note": "cast_rays, the JAX package's BVH walk: an XLA while_loop, no "
+                         "pallas_call",
+        "launches": big_res and big_res["walk"],
+        "launches_by_path": {"big_mesh": big_res and big_res["walk"],
+                             "big_mesh_by_stage": big_res and big_res["walk_by_stage"]},
+        "max_abs_err": max(r["t_err"] for r in walk_rows),
+        "ms": e["ms"], "plain_ms": e["plain_ms_checked"], "bound_ms": e["bound_ms"],
+        "bound_by": e["by"], "library_ms": None,
+        "shapes": [{k: r[k] for k in ("label", "R", "N", "T", "checked", "flips", "face_diff",
+                                      "uv_diff", "nodes_per_ray", "pairs_per_ray", "ms",
+                                      "ms_checked", "plain_ms_checked", "bound_ms", "by",
+                                      "hit_frac")} for r in walk_rows],
+        "work": f"R={e['R']} rays, N={e['N']} nodes, T={e['T']} triangles fp32, "
+                f"{e['nodes_per_ray']:.1f} nodes and {e['pairs_per_ray']:.2f} pairs a ray; "
+                f"plain_ms on {e['checked']} of the rays (ms_checked: the kernel on them)"})
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,
@@ -4930,6 +5268,7 @@ def main() -> int:
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,
+                   "big_mesh": big_res,
                    "phase_seconds": phase_s, "card": card}, f, indent=1,
                   default=str)
     log(f"phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

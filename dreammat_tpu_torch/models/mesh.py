@@ -5,8 +5,9 @@ OBJ, PLY (ascii and binary) and binary glTF (.glb) loaders, numpy only,
 with the reference's normalization, area-weighted vertex normals,
 ``fix_winding_outward``, the procedural icosphere, the torus of
 ``tools/quantify_fastpath.py`` (a self-occluding test shape) and its
-natural (u, v) parameterisation, writers (``write_obj`` with optional
-texture coordinates, ``write_glb``, ``write_ply``) to hand it to the
+natural (u, v) parameterisation (``torus_grid_arrays``: with its seams
+duplicated, one vertex a texture vertex), writers (``write_obj`` and
+``write_glb`` with optional texture coordinates, ``write_ply``) to hand it to the
 loaders, and ``subdivide_mesh``, the midpoint (1:4) split of the
 renderer's mesh for ``visibility_subdiv``. Meshes are built with numpy on
 the host and held as tensors on one device.
@@ -321,6 +322,19 @@ def torus_arrays(R: float = 0.7, r: float = 0.28, nu: int = 24, nv: int = 12):
     return v, f.astype(np.int64)
 
 
+def torus_grid_arrays(R: float = 0.7, r: float = 0.28, nu: int = 24, nv: int = 12):
+    """``torus_arrays``' torus with its seams' vertices duplicated, one
+    vertex per texture vertex of ``torus_uv_arrays``: vertices
+    [(nu+1)*(nv+1),3] float32, faces [2*nu*nv,3] int64 (``torus_uv_arrays``'
+    texture faces) and (u, v) [(nu+1)*(nv+1),2] float32, the layout a .glb's
+    TEXCOORD_0 holds."""
+    vt, ft = torus_uv_arrays(nu, nv)
+    uu, vv = vt[:, 0].astype(np.float64) * 2 * np.pi, vt[:, 1].astype(np.float64) * 2 * np.pi
+    v = np.stack([(R + r * np.cos(vv)) * np.cos(uu), (R + r * np.cos(vv)) * np.sin(uu),
+                  r * np.sin(vv)], -1).astype(np.float32)
+    return v, ft, vt
+
+
 def torus_uv_arrays(nu: int = 24, nv: int = 12):
     """The natural (u, v) parameterisation of ``torus_arrays``' torus:
     texture vertices [(nu+1)*(nv+1),2] float32 on the unit square (the
@@ -350,27 +364,40 @@ def write_obj(path: str, v: np.ndarray, f: np.ndarray, vt: Optional[np.ndarray] 
     return path
 
 
-def write_glb(path: str, v: np.ndarray, f: np.ndarray) -> str:
-    """A binary glTF (.glb) of one mesh primitive: float32 POSITION and
-    uint16 indices (uint32 past 65,535 vertices)."""
+def write_glb(path: str, v: np.ndarray, f: np.ndarray, vt: Optional[np.ndarray] = None) -> str:
+    """A binary glTF (.glb) of one mesh primitive: float32 POSITION, float32
+    TEXCOORD_0 when ``vt`` (one (u, v) a vertex) is given, and uint16
+    indices (uint32 past 65,535 vertices)."""
     v = np.ascontiguousarray(v, dtype=np.float32)
     idx = np.asarray(f).astype(np.uint16 if len(v) <= 65535 else np.uint32).reshape(-1)
-    vb, ib = v.tobytes(), idx.tobytes() + b"\0" * (-idx.nbytes % 4)
-    js = {"asset": {"version": "2.0"}, "buffers": [{"byteLength": len(vb) + len(ib)}],
-          "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": len(vb)},
-                          {"buffer": 0, "byteOffset": len(vb), "byteLength": idx.nbytes}],
-          "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(v),
-                         "type": "VEC3", "min": v.min(0).tolist(), "max": v.max(0).tolist()},
-                        {"bufferView": 1, "componentType": 5123 if idx.dtype == np.uint16
-                         else 5125, "count": idx.size, "type": "SCALAR"}],
-          "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1}]}]}
+    blobs = [v.tobytes()]
+    attributes = {"POSITION": 0}
+    accessors = [{"bufferView": 0, "componentType": 5126, "count": len(v), "type": "VEC3",
+                  "min": v.min(0).tolist(), "max": v.max(0).tolist()}]
+    if vt is not None:
+        blobs.append(np.ascontiguousarray(vt, dtype=np.float32).tobytes())
+        attributes["TEXCOORD_0"] = len(accessors)
+        accessors.append({"bufferView": len(accessors), "componentType": 5126,
+                          "count": len(v), "type": "VEC2"})
+    accessors.append({"bufferView": len(accessors), "componentType": 5123
+                      if idx.dtype == np.uint16 else 5125, "count": idx.size, "type": "SCALAR"})
+    blobs.append(idx.tobytes())
+    views, off = [], 0
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(b)})
+        off += len(b)
+    body = b"".join(blobs) + b"\0" * (-off % 4)
+    js = {"asset": {"version": "2.0"}, "buffers": [{"byteLength": len(body)}],
+          "bufferViews": views, "accessors": accessors,
+          "meshes": [{"primitives": [{"attributes": attributes,
+                                      "indices": len(accessors) - 1}]}]}
     jb = json.dumps(js).encode()
     jb += b" " * (-len(jb) % 4)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as fh:
-        fh.write(struct.pack("<III", 0x46546C67, 2, 28 + len(jb) + len(vb) + len(ib)))
+        fh.write(struct.pack("<III", 0x46546C67, 2, 28 + len(jb) + len(body)))
         fh.write(struct.pack("<II", len(jb), 0x4E4F534A) + jb)
-        fh.write(struct.pack("<II", len(vb) + len(ib), 0x004E4942) + vb + ib)
+        fh.write(struct.pack("<II", len(body), 0x004E4942) + body)
     return path
 
 

@@ -186,7 +186,7 @@ class RaytraceRenderer(BaseObject):
             raise ValueError(f"unknown visibility_mode '{self.cfg.visibility_mode}'")
         self.bvh = bvh_lib.build_bvh(
             self.mesh.v_pos.cpu().numpy(), self.mesh.t_pos_idx.cpu().numpy(), device=self.device)
-        self.tri_data = bvh_lib._plane_tri_data(self.bvh)
+        self.tri_data = bvh_lib.cast_data(self.bvh)
         tri = self.mesh.v_pos[self.mesh.t_pos_idx]
         n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
         self.face_normals = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-20)
@@ -202,11 +202,12 @@ class RaytraceRenderer(BaseObject):
 
     def trace(self, rays_o: torch.Tensor, rays_d: torch.Tensor):
         """The reference's trace: (positions, face normals, depth [N,1],
-        hit mask). The JAX package runs its shadow rays through the XLA
-        dense caster, not its Pallas kernel; here they go through
-        ``cast_rays_chunked``, so kernel B on the card. That changes no
-        answer: kernel B returns bit for bit what the plain caster
-        (``cast_rays_plain``, the port of the JAX dense caster) returns."""
+        hit mask). At or below ``DENSE_CAST_MAX_TRIS`` triangles the JAX
+        package runs its shadow rays through the XLA dense caster, not its
+        Pallas kernel; here they go through ``cast_rays_chunked``, so kernel
+        B on the card. That changes no answer: kernel B returns bit for bit
+        what the plain caster (``cast_rays_plain``, the port of the JAX dense
+        caster) returns. Above it both walk the BVH (kernel E on the card)."""
         out = bvh_lib.cast_rays_chunked(self.bvh, rays_o, rays_d, tri_data=self.tri_data)
         t = out["t"]
         positions = rays_o + t[:, None] * rays_d

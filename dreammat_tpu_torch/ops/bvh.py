@@ -1,4 +1,4 @@
-"""Flat BVH (host build) and the dense first-hit ray caster.
+"""Flat BVH (host build), the dense first-hit caster and the BVH walk.
 
 Counterpart of ``dreammat_tpu/ops/bvh.py`` for the ported path:
 
@@ -11,9 +11,16 @@ Counterpart of ``dreammat_tpu/ops/bvh.py`` for the ported path:
   it launches kernel B (``csrc/ray_cast.cu``, which replaces the Pallas
   ``_dense_pallas_kernel``); on a CPU tensor it runs ``cast_rays_plain``,
   the plain PyTorch version (a port of ``cast_rays_plane``).
-- ``cast_rays_chunked``: the dispatcher the renderer and the bakes call.
-  Meshes above ``DENSE_CAST_MAX_TRIS`` need the BVH-traversal kernel, which
-  is not ported yet, and raise.
+- ``cast_rays_bvh``: first hit by the stackless skip-link walk of the BVH,
+  Moller-Trumbore in each leaf (the JAX package's ``cast_rays``, an XLA
+  while loop). On a CUDA tensor it launches kernel E
+  (``csrc/bvh_traverse.cu``) on the nodes and triangles that ``pack_bvh``
+  packs once per BVH; on a CPU tensor it runs ``cast_rays_bvh_plain``.
+- ``cast_rays_chunked``: the dispatcher the renderer, the bakes and the
+  export call. At or below ``DENSE_CAST_MAX_TRIS`` triangles it takes the
+  dense caster, above it the walk, as the JAX package does; ``cast_data``
+  makes once per BVH what the chosen caster reads. ``occlusion_rays`` is
+  the walk's hit mask.
 
 Miss semantics: t = 10 (``MISS_DEPTH``), face = -1, u = v = 0.
 """
@@ -405,13 +412,221 @@ def cast_rays_dense(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
 cast_rays_dense.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# BVH walk
+# ---------------------------------------------------------------------------
+
+def _max(a, b):
+    """max(a, b) as kernel E takes it (``a > b ? a : b``)."""
+    return torch.where(a > b, a, b)
+
+
+def _min(a, b):
+    """min(a, b) as kernel E takes it (``a < b ? a : b``)."""
+    return torch.where(a < b, a, b)
+
+
+def _inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1 / d per axis, |d| clamped to 1e-12 with d's sign (d = 0 counts as +)."""
+    tiny = torch.where(d >= 0, torch.full_like(d, 1e-12), torch.full_like(d, -1e-12))
+    return torch.ones_like(d) / torch.where(d.abs() < 1e-12, tiny, d)
+
+
+def _slab(o, inv, lo, hi, t_best):
+    """The JAX package's ``_ray_aabb``: whether the ray meets the box
+    [lo, hi] before ``t_best``, in kernel E's order of fp32 operations."""
+    t0 = [(lo[:, a] - o[:, a]) * inv[:, a] for a in range(3)]
+    t1 = [(hi[:, a] - o[:, a]) * inv[:, a] for a in range(3)]
+    near = [_min(t0[a], t1[a]) for a in range(3)]
+    far = [_max(t0[a], t1[a]) for a in range(3)]
+    tmin = _max(_max(near[0], near[1]), near[2])
+    tmax = _min(_min(far[0], far[1]), far[2])
+    return (tmax >= _max(tmin, torch.zeros_like(tmin))) & (tmin < t_best)
+
+
+def _moller_trumbore(o, d, v0, e1, e2):
+    """The JAX package's ``_tri_hits`` for one triangle a ray, each cross
+    and dot product written out component by component and summed left to
+    right, as kernel E rounds it. Returns (t, u, v, valid without the
+    running-best test)."""
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    ax, ay, az = v0.unbind(1)
+    e1x, e1y, e1z = e1.unbind(1)
+    e2x, e2y, e2z = e2.unbind(1)
+    px, py, pz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
+    det = (e1x * px + e1y * py) + e1z * pz
+    ok = det.abs() > 1e-9
+    inv_det = torch.where(ok, torch.ones_like(det) / det, torch.zeros_like(det))
+    tx, ty, tz = ox - ax, oy - ay, oz - az
+    u = ((tx * px + ty * py) + tz * pz) * inv_det
+    qx, qy, qz = ty * e1z - tz * e1y, tz * e1x - tx * e1z, tx * e1y - ty * e1x
+    v = ((dx * qx + dy * qy) + dz * qz) * inv_det
+    t = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det
+    valid = ok & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 1e-6)
+    return t, u, v, valid
+
+
+def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
+                        counters_out: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch BVH walk (the JAX package's ``cast_rays``), vectorised
+    over rays: each ray starts at the root and, per step, tests its node's
+    box against (0, best t); a met internal node descends to the next node
+    in DFS order, anything else jumps along the node's miss link; a met
+    leaf tests its triangles by Moller-Trumbore in slot order, a hit taking
+    the best only with a strictly smaller t (so the first of equal t wins).
+    Rays that have left the tree drop out. ``counters_out``, an int64 [2]
+    tensor, gets the nodes visited and the (ray, triangle) pairs tested
+    added to it."""
+    o = rays_o.float()
+    d = rays_d.float()
+    inv = _inv_dir(d)
+    R, dev = o.shape[0], o.device
+    tb = torch.full((R,), float(t_max), dtype=torch.float32, device=dev)
+    fb = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    ub = torch.zeros(R, dtype=torch.float32, device=dev)
+    vb = torch.zeros(R, dtype=torch.float32, device=dev)
+    node_box = torch.cat([bvh.node_min, bvh.node_max], dim=1)
+    node_links = torch.stack([bvh.node_miss, bvh.node_first, bvh.node_count], dim=1).long()
+    tri_geom = torch.cat([bvh.tri_v0, bvh.tri_e1, bvh.tri_e2], dim=1)
+    tri_id = bvh.tri_id.to(torch.int32)
+    idx = torch.arange(R, device=dev)
+    cur = torch.zeros(R, dtype=torch.long, device=dev)
+    nodes = pairs = 0
+    while idx.numel():
+        box, links = node_box[cur], node_links[cur]
+        oi, di = o[idx], d[idx]
+        met = _slab(oi, inv[idx], box[:, :3], box[:, 3:], tb[idx])
+        count = links[:, 2]
+        nodes += idx.numel()
+        leaf = torch.nonzero(met & (count > 0))[:, 0]
+        for lane in range(LEAF_SIZE):
+            sel = leaf[count[leaf] > lane]
+            if not sel.numel():
+                break
+            pairs += sel.numel()
+            slot = links[sel, 1] + lane
+            geom = tri_geom[slot]
+            t, u, v, valid = _moller_trumbore(oi[sel], di[sel], geom[:, :3], geom[:, 3:6],
+                                              geom[:, 6:])
+            ray = idx[sel]
+            better = valid & (t < tb[ray])
+            ray, slot = ray[better], slot[better]
+            tb[ray], ub[ray], vb[ray] = t[better], u[better], v[better]
+            fb[ray] = tri_id[slot]
+        nxt = torch.where(met & (count == 0), cur + 1, links[:, 0])
+        keep = nxt >= 0
+        idx, cur = idx[keep], nxt[keep]
+    if counters_out is not None:
+        counters_out += torch.tensor([nodes, pairs], dtype=torch.int64, device=counters_out.device)
+    return _finish(tb, fb, ub, vb)
+
+
+class PackedBVH(NamedTuple):
+    """Kernel E's view of a BVH (``pack_bvh``)."""
+    nodes: torch.Tensor  # [N, 8] f32: (min xyz, miss link), (max xyz, first * 8 + count)
+    tris: torch.Tensor   # [T, 12] f32: (v0 xyz, id), (e1 xyz, 0), (e2 xyz, 0); ints as bits
+
+
+def pack_bvh(bvh: FlatBVH) -> PackedBVH:
+    """Nodes as two float4 each and triangles as three, the integers stored
+    as their bits: what kernel E reads. Made once per BVH (the renderer
+    keeps it as its ``tri_data``)."""
+    if bvh.tri_v0.shape[0] >= 1 << 28:
+        raise ValueError("kernel E codes a leaf's first slot in 28 bits: at most 2^28 slots")
+    bits = lambda x: x.to(torch.int32).view(torch.float32)[:, None]
+    code = torch.where(bvh.node_count > 0, bvh.node_first * 8 + bvh.node_count,
+                       torch.zeros_like(bvh.node_count))
+    nodes = torch.cat([bvh.node_min, bits(bvh.node_miss), bvh.node_max, bits(code)], dim=1)
+    zero = torch.zeros_like(bvh.tri_v0[:, :1])
+    tris = torch.cat([bvh.tri_v0, bits(bvh.tri_id), bvh.tri_e1, zero, bvh.tri_e2, zero], dim=1)
+    return PackedBVH(nodes.contiguous(), tris.contiguous())
+
+
+_WALK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 6
+
+
+def cast_rays_bvh(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
+                  packed: Optional[PackedBVH] = None,
+                  counters_out: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """First hit by the BVH walk. CUDA tensors launch kernel E on
+    ``packed`` (``pack_bvh(bvh)`` when not given); CPU tensors run
+    ``cast_rays_bvh_plain``. ``counters_out``, an int64 [2] tensor on the
+    rays' device, if given, has the nodes visited and the (ray, triangle)
+    pairs tested added to it."""
+    if counters_out is not None and (counters_out.dtype != torch.int64
+                                     or counters_out.shape != (2,)
+                                     or counters_out.device != rays_o.device):
+        raise ValueError("counters_out must be an int64 [2] tensor on the rays' device")
+    if rays_o.device.type == "cpu":
+        return cast_rays_bvh_plain(bvh, rays_o, rays_d, t_max=t_max, counters_out=counters_out)
+    packed = pack_bvh(bvh) if packed is None else packed
+    for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 [R,3] tensor")
+        if x.device != rays_o.device:
+            raise ValueError("rays_o and rays_d must be on the same device")
+    if rays_o.shape != rays_d.shape:
+        raise ValueError("rays_o and rays_d differ in shape")
+    if not isinstance(packed, PackedBVH):
+        raise ValueError("packed must be pack_bvh's PackedBVH")
+    for name, x, width in (("nodes", packed.nodes, 8), ("tris", packed.tris, 12)):
+        if x.device != rays_o.device or x.dtype != torch.float32 or x.dim() != 2 \
+                or x.shape[1] != width or not x.is_contiguous():
+            raise ValueError(f"packed {name} must be float32 [.,{width}] on the rays' device")
+    from dreammat_tpu_torch.ops import kernels
+
+    fn = kernels.function("bvh_traverse", "bvh_traverse", _WALK_ARGTYPES)
+    R, dev = rays_o.shape[0], rays_o.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    face = torch.empty(R, dtype=torch.int32, device=dev)
+    u = torch.empty(R, dtype=torch.float32, device=dev)
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    if R == 0:
+        return _finish(t, face, u, v)
+    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), packed.nodes.data_ptr(),
+            packed.tris.data_ptr(), R, float(t_max), t.data_ptr(), face.data_ptr(),
+            u.data_ptr(), v.data_ptr(),
+            None if counters_out is None else counters_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bvh_traverse kernel launch failed (cudaError {rc})")
+    cast_rays_bvh.launches += 1
+    return _finish(t, face, u, v)
+
+
+cast_rays_bvh.launches = 0
+
+
+def uses_walk(bvh: FlatBVH) -> bool:
+    """Whether ``cast_rays_chunked`` walks this BVH: above
+    ``DENSE_CAST_MAX_TRIS`` (padded) triangles, as in the JAX package."""
+    return bvh.tri_v0.shape[0] > DENSE_CAST_MAX_TRIS
+
+
+def cast_data(bvh: FlatBVH):
+    """What ``cast_rays_chunked``'s caster reads, made once per BVH: the
+    plane data (``_plane_tri_data``) for the dense caster, the packed nodes
+    and triangles (``pack_bvh``) for the walk."""
+    return pack_bvh(bvh) if uses_walk(bvh) else _plane_tri_data(bvh)
+
+
 def cast_rays_chunked(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
                       tri_data=None) -> Dict[str, torch.Tensor]:
-    """The casting entry point of the renderer and the visibility bake."""
-    if bvh.tri_v0.shape[0] > DENSE_CAST_MAX_TRIS:
-        raise NotImplementedError(
-            f"meshes above {DENSE_CAST_MAX_TRIS} triangles need the BVH-traversal "
-            "kernel, which is not ported yet"
-        )
-    return cast_rays_dense(bvh, rays_o.float().contiguous(), rays_d.float().contiguous(),
-                           t_max=t_max, tri_data=tri_data)
+    """The casting entry point of the renderer, the bakes and the export:
+    the dense caster (kernel B on the card) at or below
+    ``DENSE_CAST_MAX_TRIS`` triangles, the walk (kernel E) above.
+    ``tri_data`` is ``cast_data(bvh)``, made here when not given."""
+    o, d = rays_o.float().contiguous(), rays_d.float().contiguous()
+    if uses_walk(bvh):
+        return cast_rays_bvh(bvh, o, d, t_max=t_max, packed=tri_data)
+    return cast_rays_dense(bvh, o, d, t_max=t_max, tri_data=tri_data)
+
+
+def occlusion_rays(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH) -> torch.Tensor:
+    """Occlusion query, bool [R]: a hit of the BVH walk closer than
+    ``t_max`` (the JAX package's ``occlusion_rays``, which walks at every
+    mesh size)."""
+    return cast_rays_bvh(bvh, rays_o.float().contiguous(), rays_d.float().contiguous(),
+                         t_max=t_max)["hit"]

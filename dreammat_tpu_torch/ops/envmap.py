@@ -299,12 +299,23 @@ def _hammersley(n: int):
     return u1.astype(np.float32), u2.astype(np.float32)
 
 
+_FG_LUTS: dict = {}
+
+
 def compute_fg_lut(res: int = 256, n_samples: int = 512, device="cuda",
                    row_chunk: int = 32) -> torch.Tensor:
     """Karis split-sum (scale, bias) for F0 as a [res, res, 2] LUT indexed
     [NoV, linear roughness]; Hammersley-sampled GGX, Schlick-GGX geometry
-    with k = alpha/2."""
+    with k = alpha/2. Computed once a process per (res, samples, device);
+    each call returns a copy."""
     device = resolve_device(device)
+    key = (res, n_samples, str(device))
+    if key not in _FG_LUTS:
+        _FG_LUTS[key] = _fg_lut(res, n_samples, device, row_chunk)
+    return _FG_LUTS[key].clone()
+
+
+def _fg_lut(res: int, n_samples: int, device, row_chunk: int) -> torch.Tensor:
     u1, u2 = (torch.as_tensor(a, device=device) for a in _hammersley(n_samples))
     phi = 2.0 * math.pi * u1                                     # [S]
     rough = (torch.arange(res, dtype=torch.float32, device=device) + 0.5) / res

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
     "ray_cast": "ray_cast.cu",
+    "bvh_traverse": "bvh_traverse.cu",
 }
 
 NVCC_FLAGS = [

@@ -182,7 +182,7 @@ def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: tor
     dirs = _grid_dirs(N, v_pos.device)
     N2 = N * N
     point_chunk = max(1, (chunk * 64) // N2)
-    tri_data = bvh_lib._plane_tri_data(bvh)
+    tri_data = bvh_lib.cast_data(bvh)
     tables = []
     for i in range(0, V, point_chunk):
         vp = v_pos[i:i + point_chunk]
@@ -251,10 +251,16 @@ def self_occlusion_fraction(baked: BakedVisibility, v_nrm: torch.Tensor,
     return float(occ.sum()) / float(max(int(up.sum()), 1))
 
 
+# vertices a chunk of the whole-mesh bakes below: a whole-mesh fp32
+# temporary of a 2.6M-vertex mesh's shadowed radiance would be 40 GB
+_V_CHUNK = 1 << 18
+
+
 def bake_shadowed_radiance(baked: BakedVisibility, envs: torch.Tensor,
                            supersample: int = 4) -> torch.Tensor:
     """L_vis [V, O2, E*3] float16: each env averaged over the bin
-    (supersample^2 points) times the vertex's visibility of that bin."""
+    (supersample^2 points) times the vertex's visibility of that bin, the
+    fp32 products formed ``_V_CHUNK`` vertices at a time."""
     from dreammat_tpu_torch.ops.envmap import sample_equirect_bilinear
 
     O = baked.oct_res
@@ -264,18 +270,23 @@ def bake_shadowed_radiance(baked: BakedVisibility, envs: torch.Tensor,
     E = env_rad.shape[0]
     env_rad = env_rad.reshape(E, O, s, O, s, 3).mean(dim=(2, 4)).reshape(E, O * O, 3)
     flat = env_rad.permute(1, 0, 2).reshape(O * O, E * 3)
-    return (flat[None] * baked.table.float()[:, :, None]).half()
+    table = baked.table
+    out = torch.empty(table.shape[0], O * O, E * 3, dtype=torch.float16, device=table.device)
+    for s in range(0, table.shape[0], _V_CHUNK):
+        out[s:s + _V_CHUNK] = (flat[None] * table[s:s + _V_CHUNK].float()[:, :, None]).half()
+    return out
 
 
 def bake_vertex_irradiance_conv(lvis: torch.Tensor, v_nrm: torch.Tensor,
                                 oct_res: int) -> torch.Tensor:
     """Per-vertex diffuse irradiance / pi, E_d [E, V, 3], as a cosine-kernel
-    quadrature over the octahedral bins."""
+    quadrature over the octahedral bins (``_V_CHUNK`` vertices at a time)."""
     dirs, sa = oct_bin_geometry(oct_res)
     dirs = torch.as_tensor(dirs, device=v_nrm.device)
     sa = torch.as_tensor(sa, device=v_nrm.device)
     w = torch.clamp(v_nrm @ dirs.T, min=0.0) * sa                  # [V,O2]
-    out = torch.einsum("vo,voc->vc", w, lvis.float()) / math.pi
+    out = torch.cat([torch.einsum("vo,voc->vc", w[s:s + _V_CHUNK], lvis[s:s + _V_CHUNK].float())
+                     for s in range(0, w.shape[0], _V_CHUNK)]) / math.pi
     V, E = out.shape[0], out.shape[-1] // 3
     return out.reshape(V, E, 3).permute(1, 0, 2).contiguous()
 

@@ -228,8 +228,10 @@ class ControlNetTrainer(BaseObject):
         return self.controlnet_compute(noisy, t, ctx, cond, scale)
 
     def distribute(self, mesh: Optional[Mesh]) -> None:
-        """Train over ``mesh``: the ControlNet wrapped in DDP over the process
-        group (its gradient all-reduces counted in ``grad_allreduces``), the
+        """Train over ``mesh``: the ControlNet wrapped in DDP over the data
+        axis where ``n_data > 1`` (its gradient all-reduces counted in
+        ``grad_allreduces``; the model ranks of one data block hold the same
+        gradient, as the JAX trainer's reduction over ``data`` assumes), the
         frozen UNet split over the model axis where ``n_model > 1``. Without
         a process group, one process as before."""
         if self.controlnet is None:
@@ -244,14 +246,17 @@ class ControlNetTrainer(BaseObject):
             n = tp_shard_params(mesh, self.unet)
             dreammat_tpu_torch.info("tensor parallel: %d UNet layers split over %d ranks", n,
                                     mesh.n_model)
+        if mesh.n_data == 1:
+            return
         self.controlnet_ddp = DistributedDataParallel(
-            self.controlnet_compute, device_ids=[self.device] if self.device.type == "cuda" else None)
+            self.controlnet_compute, process_group=mesh.data_group,
+            device_ids=[self.device] if self.device.type == "cuda" else None)
 
         def counted_allreduce(state, bucket):
             self.grad_allreduces += 1
             return default_hooks.allreduce_hook(state, bucket)
 
-        self.controlnet_ddp.register_comm_hook(None, counted_allreduce)
+        self.controlnet_ddp.register_comm_hook(mesh.data_group, counted_allreduce)
 
     def encode_prompts(self, prompts: List[str]) -> torch.Tensor:
         ids = torch.as_tensor(self.tokenizer.batch(prompts), dtype=torch.long, device=self.device)

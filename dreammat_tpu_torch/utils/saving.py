@@ -89,6 +89,14 @@ def save_gif(path: str, frames: List[np.ndarray], fps: int = 30, data_range=(0, 
     return path
 
 
+def _write_rows(f, fmt: str, rows: np.ndarray, chunk: int = 1 << 16) -> None:
+    """Each row of ``rows`` through the %-format ``fmt``, written in chunks
+    (one format call a chunk, not one a row)."""
+    for s in range(0, len(rows), chunk):
+        block = rows[s:s + chunk]
+        f.write((fmt * len(block)) % tuple(block.reshape(-1).tolist()))
+
+
 def save_obj_with_mtl(
     out_dir: str,
     name: str,
@@ -107,25 +115,26 @@ def save_obj_with_mtl(
     os.makedirs(out_dir, exist_ok=True)
     obj_path = os.path.join(out_dir, f"{name}.obj")
     mtl_name = f"{name}.mtl"
-    lines = [f"mtllib {mtl_name}\n"]
-    lines += [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n" for v in np.asarray(v_pos)]
-    if v_tex is not None:
-        lines += [f"vt {vt[0]:.6f} {1.0 - vt[1]:.6f}\n" for vt in np.asarray(v_tex)]
-    if v_nrm is not None:
-        lines += [f"vn {vn[0]:.6f} {vn[1]:.6f} {vn[2]:.6f}\n" for vn in np.asarray(v_nrm)]
-    lines.append(f"usemtl {name}\n")
-    F = np.asarray(t_pos_idx)
-    FT = np.asarray(t_tex_idx) if t_tex_idx is not None else F
-    for i in range(F.shape[0]):
-        toks = []
-        for k in range(3):
-            vi = F[i, k] + 1
-            ti = FT[i, k] + 1 if v_tex is not None else ""
-            ni = vi if v_nrm is not None else ""
-            toks.append(f"{vi}/{ti}/{ni}" if v_tex is not None or v_nrm is not None else f"{vi}")
-        lines.append("f " + " ".join(toks) + "\n")
+    F = np.asarray(t_pos_idx).astype(np.int64) + 1
+    if v_tex is not None or v_nrm is not None:
+        FT = (np.asarray(t_tex_idx) if t_tex_idx is not None else np.asarray(t_pos_idx))
+        cols = [F, FT.astype(np.int64) + 1 if v_tex is not None else None,
+                F if v_nrm is not None else None]
+        corner = "/".join("%d" if c is not None else "" for c in cols)
+        faces = np.stack([c for c in cols if c is not None], axis=-1).reshape(len(F), -1)
+        face_fmt = "f " + " ".join([corner] * 3) + "\n"
+    else:
+        faces, face_fmt = F, "f %d %d %d\n"
     with open(obj_path, "w") as f:
-        f.writelines(lines)
+        f.write(f"mtllib {mtl_name}\n")
+        _write_rows(f, "v %.6f %.6f %.6f\n", np.asarray(v_pos))
+        if v_tex is not None:
+            vt = np.asarray(v_tex)
+            _write_rows(f, "vt %.6f %.6f\n", np.stack([vt[:, 0], 1.0 - vt[:, 1]], axis=-1))
+        if v_nrm is not None:
+            _write_rows(f, "vn %.6f %.6f %.6f\n", np.asarray(v_nrm))
+        f.write(f"usemtl {name}\n")
+        _write_rows(f, face_fmt, faces)
 
     mtl = [f"newmtl {name}\n", "Ka 1.000 1.000 1.000\nKd 1.000 1.000 1.000\nKs 0.000 0.000 0.000\n"]
     for key, fname, m in (("map_Kd", "texture_kd.jpg", albedo_map),

@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import playground_2d_torch
 import webapp_torch
 from test_torch_dreammat_step import _numpy_random_init
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def test_playground_tiny_on_cpu(tmp_path, monkeypatch):

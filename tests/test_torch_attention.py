@@ -16,6 +16,7 @@ import torch
 from chip_smoke import ATTN_SHAPES, TRAIN_ATTN_SHAPES
 from dreammat_tpu_torch.ops import attention as tattn
 from dreammat_tpu_torch.ops import kernels
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 SHAPES = [
     (1, 256, 256, 2, 64),

@@ -35,7 +35,7 @@ from dreammat_tpu.data import prerender as jpr
 from dreammat_tpu.utils.config import load_config as jload
 from dreammat_tpu_torch.data import prerender as tpr
 from dreammat_tpu_torch.utils.config import load_config as tload
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 OVERRIDES = [

@@ -55,7 +55,7 @@ from test_torch_in2n import numpy_vgg16
 from test_torch_volume import (
     SEED, GivenDraws, _close, _render_draws,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 from test_torch_zero123 import numpy_params
 from tests.test_co3d import _write_co3d
 from tests.test_in2n import _make_scene

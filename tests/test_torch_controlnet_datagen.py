@@ -39,7 +39,7 @@ from dreammat_tpu_torch.models.mesh import icosphere_arrays
 from dreammat_tpu_torch.ops import envmap as tenv
 from dreammat_tpu_torch.ops import visibility as tvis
 from test_torch_user_inputs import _radiance, _write_glb_simple
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 N_VIEWS, N_ENVS, RES = 2, 2, 32
 

@@ -27,7 +27,7 @@ from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition
 from dreammat_tpu_torch.systems.controlnet_trainer import ControlNetTrainer, controlnet_from_unet
 from dreammat_tpu_torch.utils.ckpt import load_checkpoint
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RES, B = 16, 2
 

@@ -32,7 +32,7 @@ from dreammat_tpu_torch.models import debias as tdebias
 from dreammat_tpu_torch.models.diffusion import bert as tbert
 from dreammat_tpu_torch.models.diffusion.convert import bert_state_dict_from_flax
 from dreammat_tpu_torch.models.diffusion.wordpiece import WordPieceTokenizer as TTok
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 PROMPTS = ["a red apple", "A wooden chair, front-facing and worn", "Crème brûlée in a [MASK] dish",
            "the back of a vintage leather armchair", "an overhead lamp"]

@@ -51,12 +51,12 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _rel
-from test_torch_latentnerf import _cached_random_init
+from test_torch_dreammat_step import _numpy_random_init
 from test_torch_zero123 import numpy_params, write_inputs
 from test_torch_volume import (
     SEED, GivenDraws, _close, _given_prompt_embeddings, _render_draws,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL = 1e-4
 nchw = lambda x: np.ascontiguousarray(np.moveaxis(np.asarray(x), -1, 1))
@@ -135,7 +135,7 @@ def if_pair():
            "guidance_scale": 20.0, "cache_dir": None}
     jg = dreammat_tpu.find("deep-floyd-guidance")(cfg)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jconvert, "fast_random_init", _cached_random_init)
+        mp.setattr(jconvert, "fast_random_init", _numpy_random_init)
         jg.init_params(jax.random.PRNGKey(0))
     tg = dreammat_tpu_torch.find("deep-floyd-guidance")(cfg, device="cpu")
     tg.init_params()
@@ -258,7 +258,7 @@ def test_dreamfusion_if_step_matches_jax(tmp_path):
     jsys.prompt_processor, jsys.prompt_utils = "given", jpu
     jitted = jax.jit(JNeRF.update_occ, static_argnums=0)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jconvert, "fast_random_init", _cached_random_init)
+        mp.setattr(jconvert, "fast_random_init", _numpy_random_init)
         mp.setattr(JNeRF, "update_occ", lambda self, *a: jitted(self, *a))
         jsys.on_fit_start(k_guidance)
         state0 = _np(jsys.init_state(k_init))

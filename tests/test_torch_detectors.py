@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from dreammat_tpu.models import detectors as jdet
 from dreammat_tpu.models import guidance_triple as jtriple
 from dreammat_tpu_torch.models import detectors as tdet
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def _nchw(x):

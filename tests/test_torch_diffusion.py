@@ -29,7 +29,7 @@ from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNe
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from test_torch_dreammat_step import _numpy_random_init
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 B, h, w = 3, 8, 8
 

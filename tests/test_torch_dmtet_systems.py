@@ -52,7 +52,7 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import _csv_losses
 from test_torch_mesh_rasterizer import jit_splitsum  # noqa: F401
 from test_torch_volume import GivenDraws, volume_pair
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 SEED = 0
 PROMPT = ["system.prompt_processor.prompt=a stone hamburger",

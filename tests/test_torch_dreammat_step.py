@@ -46,7 +46,7 @@ from dreammat_tpu_torch.models.diffusion.convert import (
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 SEED = 0
@@ -95,12 +95,52 @@ class GivenDraws:
         return self._get(name, shape)
 
 
-def _numpy_random_init(rng, init_fn):
-    """``fast_random_init``'s fill (normal(0, 0.02), norm scales 1, biases 0)
-    from a numpy generator."""
+_INIT_CACHE, _SHAPE_CACHE = {}, {}
+
+
+def _model_key(init_fn):
+    """What the parameter shapes of ``init_fn`` depend on: its code, the flax
+    modules of the objects it closes over and its other closed-over values
+    (arrays by shape); None where a closed-over value is none of these."""
+    import flax.linen as fnn
+
+    def part(v):
+        if isinstance(v, fnn.Module):
+            return repr(v)
+        if hasattr(v, "shape") and hasattr(v, "dtype"):
+            return ("array", tuple(v.shape), str(v.dtype))
+        if isinstance(v, (int, float, str, tuple, type(None))):
+            return repr(v)
+        return (type(v).__name__, tuple(sorted(
+            (k, repr(m)) for k, m in vars(v).items() if isinstance(m, fnn.Module))))
+
+    cells = [c.cell_contents for c in init_fn.__closure__ or ()]
+    try:
+        return (init_fn.__code__, tuple(part(v) for v in cells + list(init_fn.__defaults__ or ())))
+    except TypeError:  # a value without attributes (a dict, say): not cached
+        return None
+
+
+def _numpy_random_init(rng, init_fn, std: float = 0.02):
+    """``fast_random_init``'s fill (normal(0, ``std``), norm scales 1, biases
+    0) from a numpy generator seeded from the key, made once a process per
+    key, model and ``std``: each model's parameter shapes are traced once
+    (``jax.eval_shape`` of a tiny UNet takes seconds), and every call gets
+    its own containers over the same (immutable) arrays."""
     seed = int(np.asarray(jax.random.key_data(rng)).ravel()[-1]) % (2 ** 31)
+    model = _model_key(init_fn)
+    if model is None or (seed, model, std) not in _INIT_CACHE:
+        if model is None or model not in _SHAPE_CACHE:
+            shapes = jax.eval_shape(init_fn)
+            if model is None:
+                return _fill(seed, shapes, std)
+            _SHAPE_CACHE[model] = shapes
+        _INIT_CACHE[seed, model, std] = _fill(seed, _SHAPE_CACHE[model], std)
+    return jax.tree_util.tree_map(lambda x: x, _INIT_CACHE[seed, model, std])
+
+
+def _fill(seed, shapes, std):
     gen = np.random.RandomState(seed)
-    shapes = jax.eval_shape(init_fn)
 
     def fill(path, s):
         name = path[-1].key if hasattr(path[-1], "key") else str(path[-1])
@@ -108,7 +148,7 @@ def _numpy_random_init(rng, init_fn):
             return jnp.ones(s.shape, s.dtype)
         if name == "bias":
             return jnp.zeros(s.shape, s.dtype)
-        return jnp.asarray(gen.normal(0.0, 0.02, s.shape).astype(s.dtype))
+        return jnp.asarray(gen.normal(0.0, std, s.shape).astype(s.dtype))
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
 

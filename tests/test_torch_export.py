@@ -43,7 +43,7 @@ from dreammat_tpu_torch.models import exporter as texp
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
 from dreammat_tpu_torch.utils import saving
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 GEO_CFG = {"shape_init_params": 0.8, "pos_encoding_config": {

@@ -37,7 +37,7 @@ from dreammat_tpu_torch.data import prerender as tpr
 from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def setup_pair(tmp_path_factory, extra=()):

@@ -20,7 +20,7 @@ from dreammat_tpu_torch.models.geometry import DreamMatMesh as TMesh
 from dreammat_tpu_torch.models.material import DreamMatMaterial as TMaterial
 from dreammat_tpu_torch.models.material import material_smoothness_grad as t_smooth
 from dreammat_tpu_torch.ops import hashgrid as thg
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 TOL = 1e-5

@@ -18,7 +18,7 @@ import torch
 
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 from test_torch_fastpath import setup_pair
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def _rel(a, b):

@@ -46,11 +46,12 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.utils import perceptual as tperceptual
 
 from test_torch_dreammat_step import _csv_losses, _np, _rel
-from test_torch_latentnerf import _cached_random_init, fast_pair
+from test_torch_dreammat_step import _numpy_random_init
+from test_torch_latentnerf import fast_pair
 from test_torch_volume import (
     SEED, GivenDraws, _close, _given_prompt_embeddings, _render_draws, scene_moves,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 from tests.test_in2n import _make_scene
 
 RTOL = 1e-4
@@ -175,7 +176,7 @@ IP2P_TINY = {"model_size": "tiny", "half_precision_weights": False, "diffusion_s
 def ip2p_pair():
     jg = dreammat_tpu.find("stable-diffusion-instructpix2pix-guidance")(IP2P_TINY)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jconvert, "fast_random_init", _cached_random_init)
+        mp.setattr(jconvert, "fast_random_init", _numpy_random_init)
         jg.init_params(jax.random.PRNGKey(0))
     tg = dreammat_tpu_torch.find("stable-diffusion-instructpix2pix-guidance")(IP2P_TINY,
                                                                            device="cpu")

@@ -42,13 +42,12 @@ from dreammat_tpu_torch.models.diffusion.convert import (
 )
 from dreammat_tpu_torch.utils.config import load_config as tload
 
-import test_torch_volume
-from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
+from test_torch_dreammat_step import _csv_losses, _np, _rel
 from test_torch_volume import (
     SEED, TINY_GRID, GivenDraws, _close, _geometries, _render_draws, scene_moves,
     volume_pair,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL = 1e-5
 RTOL_FD = 1e-4
@@ -299,54 +298,14 @@ def test_custom_mesh_is_the_dreammat_mesh_geometry():
 # -- the systems -------------------------------------------------------------
 SJC = "configs/sjc_tiny.yaml"
 PROMPT = ["system.prompt_processor.prompt=a red apple"]
-_INIT_CACHE, _SHAPE_CACHE = {}, {}
-
-
-def _model_key(init_fn):
-    """What the parameter shapes of ``init_fn`` depend on: its code, the flax
-    modules of the objects it closes over and its other closed-over values
-    (arrays by shape)."""
-    import flax.linen as fnn
-
-    def part(v):
-        if isinstance(v, fnn.Module):
-            return repr(v)
-        if hasattr(v, "shape") and hasattr(v, "dtype"):
-            return ("array", tuple(v.shape), str(v.dtype))
-        if isinstance(v, (int, float, str, tuple, type(None))):
-            return repr(v)
-        return (type(v).__name__, tuple(sorted(
-            (k, repr(m)) for k, m in vars(v).items() if isinstance(m, fnn.Module))))
-
-    cells = [c.cell_contents for c in init_fn.__closure__ or ()]
-    return (init_fn.__code__, tuple(part(v) for v in cells + list(init_fn.__defaults__ or ())))
-
-
-def _cached_random_init(rng, init_fn):
-    """``_numpy_random_init`` made once per key and model, each model's
-    parameter shapes traced once: every system here holds the same tiny
-    UNet and VAE, and the single-image systems the same Zero123 towers
-    under other keys."""
-    model = _model_key(init_fn)
-    key = (int(np.asarray(jax.random.key_data(rng)).ravel()[-1]), model)
-    if key not in _INIT_CACHE:
-        if model not in _SHAPE_CACHE:
-            _SHAPE_CACHE[model] = jax.eval_shape(init_fn)
-        zeros = lambda: jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
-                                               _SHAPE_CACHE[model])
-        _INIT_CACHE[key] = _numpy_random_init(rng, zeros)
-    return _INIT_CACHE[key]
-
-
 def fast_pair(config, overrides, system_type):
     """``volume_pair`` with the JAX occupancy refresh jitted (eager, it
-    compiles op by op) and the tiny diffusion weights made once."""
+    compiles op by op)."""
     from dreammat_tpu.models.volume_renderer import NeRFVolumeRenderer as JNeRF
 
     jitted = jax.jit(JNeRF.update_occ, static_argnums=0)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JNeRF, "update_occ", lambda self, *a: jitted(self, *a))
-        mp.setattr(test_torch_volume, "_numpy_random_init", _cached_random_init)
         return volume_pair(config, overrides, system_type)
 
 

@@ -36,7 +36,7 @@ import pytest
 from dreammat_tpu_torch.models.mesh_rasterizer import MeshRasterizer
 
 from test_torch_dmtet_systems import _given_hits
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 from test_torch_zero123 import (
     Z123_TINY, compare_step, image_overrides, step_keys, system_pair, volume_draws,
     write_inputs, zero123_draws,

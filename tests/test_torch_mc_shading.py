@@ -40,7 +40,7 @@ from dreammat_tpu.ops import visibility as jvis
 from dreammat_tpu_torch.models.mesh import compute_vertex_normals, torus_arrays
 from dreammat_tpu_torch.ops import bvh as tbvh
 from dreammat_tpu_torch.ops import visibility as tvis
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 P = 64

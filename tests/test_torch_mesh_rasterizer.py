@@ -42,7 +42,7 @@ import dreammat_tpu_torch.models  # noqa: F401
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 
 from test_torch_dreammat_step import _np
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 TINY_GRID = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
              "log2_hashmap_size": 10, "base_resolution": 4, "per_level_scale": 1.5}

@@ -29,6 +29,7 @@ from dreammat_tpu_torch.systems import optimizers as topt
 from dreammat_tpu_torch.utils import loggers as tlog
 from dreammat_tpu_torch.utils import tboard as ttb
 from dreammat_tpu_torch.utils.config import load_config
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 OPTIMIZERS = {
     "adan": {"name": "Adan", "args": {"lr": 0.05, "betas": [0.98, 0.92], "eps": 1e-8}},

@@ -25,7 +25,7 @@ import dreammat_tpu_torch
 from dreammat_tpu.utils.config import load_config as jload
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 TOL = 1e-4

@@ -35,7 +35,8 @@ from dreammat_tpu.models.diffusion import convert as jconvert
 from dreammat_tpu.models.prompt import PromptEmbeddings as JPE
 from dreammat_tpu_torch.models.diffusion.convert import flax_to_torch_state_dict
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
-from torch_threads import one_thread  # noqa: F401
+from test_torch_dreammat_step import _numpy_random_init as shared_numpy_init
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def _rel(a, b):
@@ -140,20 +141,9 @@ def test_perp_neg_embeddings_and_weights_match_jax():
 
 
 def _numpy_random_init(rng, init_fn):
-    """``fast_random_init``'s fill (normal(0, 0.02), norm scales 1, biases 0)
-    from numpy, seeded from the key."""
-    seed = int(np.asarray(jax.random.key_data(rng)).ravel()[-1]) % (2 ** 31)
-    gen = np.random.RandomState(seed)
-
-    def fill(path, s):
-        name = path[-1].key if hasattr(path[-1], "key") else str(path[-1])
-        if name == "scale":
-            return jnp.ones(s.shape, s.dtype)
-        if name == "bias":
-            return jnp.zeros(s.shape, s.dtype)
-        return jnp.asarray(gen.normal(0.0, 0.05, s.shape).astype(s.dtype))
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
+    """``fast_random_init``'s fill (normal(0, 0.05), norm scales 1, biases 0) from numpy, seeded
+    from the key (``test_torch_dreammat_step._numpy_random_init`` at this std)."""
+    return shared_numpy_init(rng, init_fn, std=0.05)
 
 
 class GivenDraws:

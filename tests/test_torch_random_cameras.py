@@ -60,7 +60,7 @@ from dreammat_tpu_torch.ops import visibility as tvis
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import GivenDraws, _numpy_random_init
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 SEED = 0
 GB_FIELDS = ("fg_pos", "fg_normal", "fg_viewdir", "fg_bary", "fg_uv")

@@ -1,4 +1,5 @@
-"""Kernel B (the dense first-hit caster) and the bake's ray order.
+"""Kernels B (the dense first-hit caster) and E (the BVH walk), and the
+bake's ray order.
 
 On the CPU: the pre-division reject of ``csrc/ray_cast.cu`` (in its plain
 form, ``cast_reject_plain``) never drops a pair that the plain test
@@ -15,7 +16,10 @@ hit has t = 1). On the card (``cuda``-marked; ``python -m pytest
 rays that miss, t_max clipping, ragged R and T, shadow rays, the UV
 plane (texel centres on shared edges included), and the rays of a sampled
 camera of the random-camera mode (camera, centre and up perturbs on) on
-a subdivided torus.
+a subdivided torus. Kernel E returns bit for bit what
+``cast_rays_bvh_plain`` returns, with the same nodes visited and pairs
+tested, on ties, shared edges, degenerate triangles, misses, t_max
+clipping, ragged R, a bake batch, shadow rays and the UV plane.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 from dreammat_tpu_torch.models.mesh import Mesh, icosphere_arrays, subdivide_mesh, torus_arrays
 from dreammat_tpu_torch.ops import bvh as tbvh
 from dreammat_tpu_torch.ops import visibility as tvis
+from torch_threads import one_thread  # noqa: F401
 
 CULL_PAD = 1e-4  # ray_cast.cu
 
@@ -376,3 +381,103 @@ def test_kernel_exact_on_a_sampled_camera(cuda):
     o, d = uops.get_rays(dirs, c2w)
     got = _assert_exact(b, o, d)
     assert 0.05 < float(got["hit"].float().mean()) < 0.95
+
+
+# ---------------------------------------------------------------------------
+# kernel E (the BVH walk) on the card
+# ---------------------------------------------------------------------------
+
+def _assert_walk_exact(bvh, o, d, t_max=tbvh.MISS_DEPTH):
+    """Kernel E against the plain walk on the card: bit for bit, and the
+    nodes and pairs its counter returns equal to the plain walk's."""
+    o, d = o.contiguous(), d.contiguous()
+    before = tbvh.cast_rays_bvh.launches
+    ctr = torch.zeros(2, dtype=torch.int64, device=o.device)
+    got = tbvh.cast_rays_bvh(bvh, o, d, t_max=t_max, counters_out=ctr)
+    ref_ctr = torch.zeros(2, dtype=torch.int64, device=o.device)
+    ref = tbvh.cast_rays_bvh_plain(bvh, o, d, t_max=t_max, counters_out=ref_ctr)
+    torch.cuda.synchronize()
+    assert tbvh.cast_rays_bvh.launches == before + 1
+    for key in ("hit", "t", "face", "u", "v"):
+        same = got[key] == ref[key]
+        assert bool(same.all()), (key, int((~same).sum()), o.shape[0])
+    assert torch.equal(ctr, ref_ctr), (ctr.tolist(), ref_ctr.tolist())
+    return got
+
+
+@pytest.mark.cuda
+def test_walk_exact_on_duplicate_triangles(cuda):
+    v, f = _sphere(3)
+    b = _mesh_bvh(v, np.concatenate([f, f[::-1]]), cuda)  # every face twice: exact ties
+    o, d = _rays(np.random.default_rng(0), 20000)
+    got = _assert_walk_exact(b, o.to(cuda), d.to(cuda))
+    assert float(got["hit"].float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+def test_walk_exact_through_shared_edges_and_vertices(cuda):
+    v, f = _sphere(3)
+    b = _mesh_bvh(v, f, cuda)
+    edges = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+    targets = np.concatenate([(v[edges[:, 0]] + v[edges[:, 1]]) / 2, v]).astype(np.float32)
+    eye = np.float32([0.3, -0.2, 3.0])
+    d = targets - eye
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(eye, d.shape)
+    _assert_walk_exact(b, torch.from_numpy(np.ascontiguousarray(o)).to(cuda),
+                       torch.from_numpy(d.astype(np.float32)).to(cuda))
+
+
+@pytest.mark.cuda
+def test_walk_exact_with_degenerate_triangles(cuda):
+    v, f = _sphere(3)
+    degen = np.stack([f[:200, 0], f[:200, 0], f[:200, 1]], 1)  # zero area: det 0
+    b = _mesh_bvh(v, np.concatenate([f, degen]), cuda)
+    o, d = _rays(np.random.default_rng(1), 10000)
+    _assert_walk_exact(b, o.to(cuda), d.to(cuda))
+
+
+@pytest.mark.cuda
+def test_walk_exact_on_misses_and_t_max(cuda):
+    v, f = _sphere(3)
+    b = _mesh_bvh(v, f, cuda)
+    rng = np.random.default_rng(2)
+    o, d = _rays(rng, 8000)
+    away_o, away_d = _rays(rng, 2000, radius=50.0)
+    o = torch.cat([o, away_o, away_o]).to(cuda)
+    d = torch.cat([d, away_d, -away_d]).to(cuda)  # far rays: towards the scene and away
+    got = _assert_walk_exact(b, o, d)
+    assert not bool(got["hit"][8000 + 2000:].any())
+    clipped = _assert_walk_exact(b, o, d, t_max=2.5)  # clips the far side and some front hits
+    assert int(clipped["hit"].sum()) < int(got["hit"].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 63, 65, 257, 12345])
+def test_walk_exact_on_ragged_sizes(cuda, R):
+    v, f = _sphere(3)
+    b = _mesh_bvh(v, f[:1243], cuda)
+    o, d = _rays(np.random.default_rng(R), R)
+    _assert_walk_exact(b, o.to(cuda), d.to(cuda))
+
+
+@pytest.mark.cuda
+def test_walk_exact_on_a_bake_batch_and_shadow_rays(cuda):
+    v, f = torus_arrays(nu=96, nv=48)
+    b = _mesh_bvh(v, f, cuda)
+    m = Mesh.from_numpy(v, f, device=cuda)
+    o, d, _ = tvis.bake_rays(m.v_pos[:512], m.v_nrm[:512], tvis._grid_dirs(16, cuda), 1e-3)
+    got = _assert_walk_exact(b, o, d)
+    assert 0.05 < float(got["hit"].float().mean()) < 0.95
+    o, d = _shadow_rays(v, f, 2048, seed=4)
+    got = _assert_walk_exact(b, o.to(cuda), d.to(cuda))
+    assert 0.05 < float(got["hit"].float().mean()) < 0.95  # the torus shadows itself
+
+
+@pytest.mark.cuda
+def test_walk_exact_on_the_uv_plane(cuda):
+    b, o, d = _uv_plane(256)
+    b = tbvh.FlatBVH(*(x.to(cuda) for x in b))
+    got = _assert_walk_exact(b, o.to(cuda), d.to(cuda))
+    assert bool((got["t"][got["hit"]] == 1.0).all())
+    assert 0.3 < float(got["hit"].float().mean()) < 0.9

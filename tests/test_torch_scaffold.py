@@ -26,6 +26,7 @@ from dreammat_tpu_torch.utils import ops as tops
 from dreammat_tpu_torch.utils.config import config_to_primitive as tprim
 from dreammat_tpu_torch.utils.config import load_config as tload
 from dreammat_tpu_torch.utils.schedule import C
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 OVERRIDES = [
     "system.prompt_processor.prompt=a red apple",

@@ -35,7 +35,8 @@ from dreammat_tpu_torch.models.diffusion.scheduler import add_noise
 from dreammat_tpu_torch.models.guidance import perp_neg_rows
 from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
 from dreammat_tpu_torch.utils.ops import perpendicular_component
-from torch_threads import one_thread  # noqa: F401
+from test_torch_dreammat_step import _numpy_random_init as shared_numpy_init
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL = 1e-4
 HW = 32
@@ -51,20 +52,9 @@ def _rel(a, b):
 
 
 def _numpy_random_init(rng, init_fn):
-    """``fast_random_init``'s fill (normal(0, 0.05), norm scales 1, biases 0)
-    from numpy, seeded from the key."""
-    seed = int(np.asarray(jax.random.key_data(rng)).ravel()[-1]) % (2 ** 31)
-    gen = np.random.RandomState(seed)
-
-    def fill(path, s):
-        name = path[-1].key if hasattr(path[-1], "key") else str(path[-1])
-        if name == "scale":
-            return jnp.ones(s.shape, s.dtype)
-        if name == "bias":
-            return jnp.zeros(s.shape, s.dtype)
-        return jnp.asarray(gen.normal(0.0, 0.05, s.shape).astype(s.dtype))
-
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
+    """``fast_random_init``'s fill (normal(0, 0.05), norm scales 1, biases 0) from numpy, seeded
+    from the key (``test_torch_dreammat_step._numpy_random_init`` at this std)."""
+    return shared_numpy_init(rng, init_fn, std=0.05)
 
 
 class GivenDraws:
@@ -117,8 +107,9 @@ def _inputs(B, latents=False, seed=3, azim=(40.0, -120.0)):
 
 
 def _run(jg, tg, emb, B, perp_neg=False, rgb_as_latents=False, with_cond=False, step=100,
-         key=5, azim=(40.0, -120.0)):
-    """(JAX, port) of (loss, d loss / d rgb [B,H,W,C], grad_norm)."""
+         key=5, azim=(40.0, -120.0), jax_side=True):
+    """(JAX, port) of (loss, d loss / d rgb [B,H,W,C], grad_norm); the JAX
+    tuple is None unless ``jax_side``."""
     rgb, cond, elev, azim, dist = _inputs(B, rgb_as_latents, azim=azim)
     je = JPE(**{k: jnp.asarray(v) for k, v in emb.items()}, use_perp_neg=perp_neg)
     te = TPE(**{k: torch.from_numpy(v) for k, v in emb.items()}, use_perp_neg=perp_neg)
@@ -130,7 +121,9 @@ def _run(jg, tg, emb, B, perp_neg=False, rgb_as_latents=False, with_cond=False, 
                  jcond, jnp.int32(step), k, rgb_as_latents=rgb_as_latents)
         return out["loss_sds"], out["grad_norm"]
 
-    (j_loss, j_gn), j_grad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(rgb))
+    if jax_side:
+        (j_loss, j_gn), j_grad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+            jnp.asarray(rgb))
 
     k_enc, k_t, k_noise = jax.random.split(k, 3)
     f = tg.vae_factor
@@ -145,7 +138,7 @@ def _run(jg, tg, emb, B, perp_neg=False, rgb_as_latents=False, with_cond=False, 
              draws=GivenDraws(draws), rgb_as_latents=rgb_as_latents)
     out["loss_sds"].backward()
     t_grad = np.moveaxis(x.grad.numpy(), 1, -1)
-    return ((float(j_loss), np.asarray(j_grad), float(j_gn)),
+    return ((float(j_loss), np.asarray(j_grad), float(j_gn)) if jax_side else None,
             (float(out["loss_sds"].detach()), t_grad, float(out["grad_norm"])), draws, te,
             x.detach())
 
@@ -220,6 +213,6 @@ def test_perp_neg_batch2_interleaved_and_jax_block_fault(pair):
     # sample 0's second negative and another loss, by a share of the Perp-Neg term
     (jl2, _, _), (tl2, _, _), _, _, _ = _run(jg, tg, emb, B=B, perp_neg=True, step=step,
                                              azim=(40.0, 70.0))
-    (_, _, _), (tl0, _, _), _, _, _ = _run(jg, tg, emb, B=B, perp_neg=False, step=step,
-                                           azim=(40.0, 70.0))
+    _, (tl0, _, _), _, _, _ = _run(jg, tg, emb, B=B, perp_neg=False, step=step,
+                                   azim=(40.0, 70.0), jax_side=False)
     assert abs(tl2 - jl2) > 0.05 * abs(tl2 - tl0), (tl2, jl2, tl0)

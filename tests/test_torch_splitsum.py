@@ -28,7 +28,7 @@ import dreammat_tpu_torch
 import dreammat_tpu_torch.models  # noqa: F401
 from dreammat_tpu.ops import envmap as jenv
 from dreammat_tpu_torch.ops import envmap as tenv
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 MAT = {"environment_texture": "/nonexistent", "n_environments": 2, "env_height": 16,
        "env_width": 32, "diffuse_sample_num": 16, "specular_sample_num": 8,

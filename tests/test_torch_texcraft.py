@@ -43,7 +43,7 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 from test_torch_dreammat_step import (
     GivenDraws, _csv_losses, _draws_for, _np, _numpy_random_init, _rel, _step_keys, _t,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 SEED = 0
 OVERRIDES = TEXCRAFT_TINY + [

@@ -43,7 +43,7 @@ from test_torch_latentnerf import fast_pair
 from test_torch_volume import (
     SEED, TINY_GRID, GivenDraws, _close, _rays,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL_FD = 1e-4
 SDF_CFG = {"radius": 1.0, "pos_encoding_config": TINY_GRID,

@@ -35,7 +35,7 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings as TPE
 
 from test_torch_detectors import _hed_tree, _normalbae_tree
 from test_torch_sds_guidance import GivenDraws, _embeddings, _nchw, _numpy_random_init, _rel
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL = 1e-4
 HW = 32

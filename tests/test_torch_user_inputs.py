@@ -40,7 +40,7 @@ from dreammat_tpu_torch.models import mesh as tmesh
 from dreammat_tpu_torch.ops import envmap as tenv
 from dreammat_tpu_torch.ops.visibility import BakedVisibility
 from dreammat_tpu_torch.utils.config import load_config as tload
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 TOL = 1e-4
@@ -175,9 +175,10 @@ def test_shaded_view_matches_jax(hdr_pair):
     a = rng.uniform(0.1, 0.9, (P, 3)).astype(np.float32)
     m = rng.uniform(0, 0.9, (P, 1)).astype(np.float32)
     r = rng.uniform(0.05, 0.8, (P, 1)).astype(np.float32)
-    jout = jsys.material.shade_raytracing(
-        jg.fg_pos, jg.fg_normal, jg.fg_viewdir, jnp.int32(1), jnp.asarray(m), jnp.asarray(r),
-        jnp.asarray(a), jax.random.PRNGKey(0), is_train=False, mask=jg.fg_valid,
+    # jitted: eager, the JAX shading is some 170 XLA compiles of one op each
+    jout = jax.jit(type(jsys.material).shade_raytracing, static_argnums=(0, 9))(
+        jsys.material, jg.fg_pos, jg.fg_normal, jg.fg_viewdir, jnp.int32(1), jnp.asarray(m),
+        jnp.asarray(r), jnp.asarray(a), jax.random.PRNGKey(0), False, mask=jg.fg_valid,
         vis_data=(jg.fg_tri, jg.fg_bary))
     with torch.no_grad():
         tout = tsys.material.shade_raytracing(

@@ -38,7 +38,7 @@ from dreammat_tpu.models.exporter import MeshExporter as JExporter
 from dreammat_tpu_torch.models import mesh as tmesh
 from dreammat_tpu_torch.models.diffusion.convert import geometry_params_from_numpy
 from dreammat_tpu_torch.models.exporter import UVFieldExportError
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 GEO = {"shape_init": "procedural:sphere", "shape_init_params": 1, "n_input_dims": 2,
        "pos_encoding_config": {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,

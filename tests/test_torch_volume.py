@@ -51,7 +51,7 @@ from dreammat_tpu_torch.models.prompt import PromptEmbeddings
 from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 RTOL = 1e-5
 # finite-difference normals divide fp32 density differences by eps = 0.01,
@@ -389,8 +389,9 @@ def test_render_image_matches_jax(rig):
     cd = jcam(make_eval_cameras(4, 20.0, 2.0, 60.0), 1, 10, 10)
     ro, rd = np.array(cd["rays_o"]), np.array(cd["rays_d"])
     lp = np.array(cd["camera_position"]).reshape(3)
-    jout = jr.render_image(rig["jp"], rig["bp"], rig["state"], jnp.asarray(ro), jnp.asarray(rd),
-                           jnp.asarray(lp), jax.random.PRNGKey(0), step=7)
+    jout = jax.jit(lambda gp, bp, st, ro_, rd_, lp_: jr.render_image(
+        gp, bp, st, ro_, rd_, lp_, jax.random.PRNGKey(0), step=7))(
+        rig["jp"], rig["bp"], rig["state"], jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(lp))
     tout = tr.render_image(rig["tf"], rig["bfield"], rig["occ"], torch.from_numpy(ro),
                            torch.from_numpy(rd), torch.from_numpy(lp), None, step=7)
     assert sorted(tout) == sorted(jout) == ["comp_normal", "comp_rgb", "depth", "opacity"]

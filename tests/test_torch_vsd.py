@@ -63,7 +63,7 @@ from dreammat_tpu_torch.utils.config import load_config as tload
 
 from test_torch_dreammat_step import _csv_losses, _np, _numpy_random_init, _rel
 from test_torch_volume import GivenDraws, scene_moves, step_draws, volume_pair
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 HW = 32
 VSD_CFG = {"model_size": "tiny", "half_precision_weights": False, "width": HW, "height": HW,

@@ -38,7 +38,7 @@ from dreammat_tpu_torch.models.diffusion.controlnet import ControlNet, ControlNe
 from dreammat_tpu_torch.models.diffusion.unet import UNet2DCondition, UNetConfig
 from dreammat_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from dreammat_tpu_torch.utils.safetensors_io import save_file
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 
 def _rel(a, b):

@@ -52,11 +52,12 @@ from dreammat_tpu_torch.models.diffusion.convert import (
 )
 
 from test_torch_dreammat_step import _np, _rel
-from test_torch_latentnerf import _cached_random_init, fast_pair
+from test_torch_dreammat_step import _numpy_random_init
+from test_torch_latentnerf import fast_pair
 from test_torch_volume import (
     SEED, GivenDraws, _close, _render_draws,
 )
-from torch_threads import one_thread  # noqa: F401
+from torch_threads import jax_compiles_cached, jax_fg_lut_once, one_thread  # noqa: F401
 
 Z123_TINY = "configs/zero123_tiny.yaml"
 RTOL = 1e-4
@@ -123,7 +124,7 @@ def guidance_pair(name, cond_png, **over):
            "cond_camera_distance": 1.5, "guidance_scale": 5.0, "cache_dir": None, **over}
     jg = dreammat_tpu.find(name)(cfg)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jconvert, "fast_random_init", _cached_random_init)
+        mp.setattr(jconvert, "fast_random_init", _numpy_random_init)
         jg.init_params(jax.random.PRNGKey(0))
     tg = dreammat_tpu_torch.find(name)(cfg, device="cpu")
     tg.init_params(torch.Generator().manual_seed(0))
