@@ -38,8 +38,11 @@ which fails the run on any error:
    as a yardstick fixed across versions, all R x T pairs) at
    ``CAST_OPS_PER_PAIR`` rounded fp32 operations each, over the card's
    instruction rate (132 SMs x 128 lanes x ``clocks.max.sm``). Kernel E
-   (the BVH walk) against ``cast_rays_bvh_plain`` on the same two casts,
-   bit for bit on 65,536 rays of each (``walk_case``).
+   (the BVH walk), both entries, against ``cast_rays_bvh_plain`` on the
+   same two casts: the closest-hit entry bit for bit on 65,536 rays of
+   each, with the plain walk's nodes and pairs; the any-hit entry's mask
+   bit for bit both plain walks', with its plain walk's counts
+   (``walk_case``; the bound over the same instruction rate).
 6. Main path 1: DreamMat material generation (``configs/dreammat.yaml``,
    tables regime, SD2.1 width, random weights) through the user's entry
    points: system, datamodule setup (prerender), ``fit`` for a few steps.
@@ -314,11 +317,13 @@ which fails the run on any error:
    BVH walk; its launches counted by stage: G-buffers, vertex bake, gate,
    test renders, texel bake), none through kernel B; the native builder
    must have built both BVHs; the files and the OBJ's counts are checked.
+   The vertex bake and the gate (which read only the hit mask) must launch
+   E's any-hit entry alone, the other stages its closest-hit entry alone.
    Then kernel E bit for bit against ``cast_rays_bvh_plain`` on 65,536 rays
    of each of a 512^2 view, a vertex-bake chunk, the gate's shadow rays and
-   the texel bake, with its time, nodes and pairs a ray and bound
-   (``walk_bound``). The same run goes on the CPU at tiny size, the export
-   at 64^2, with ``drive_big_mesh(work, device="cpu", size="tiny")`` once
+   the texel bake, the any-hit entry too on the bake chunk and the shadow
+   rays, with its time, nodes and pairs a ray and bound (``walk_bound``).
+   The same run goes on the CPU at tiny size, the export at 64^2, with ``drive_big_mesh(work, device="cpu", size="tiny")`` once
    ``ops.bvh.DENSE_CAST_MAX_TRIS`` is set below the tiny torus's 576
    triangles.
 19. A ``{"kernels": [...]}`` line, the card's line, and last
@@ -649,7 +654,8 @@ def phase_ray_cast() -> dict:
     # kernel E (the BVH walk) on the same rays: the main paths walk only
     # above 2^22 triangles (main path 13), so this is its quick check
     packed = bvh_lib.pack_bvh(bvh)
-    walk_rows = [walk_case(label, bvh, packed, o, d) for label, o, d in ray_cast_cases(mesh)]
+    walk_rows = [walk_case(label, bvh, packed, o, d, clock, any_hit=True)
+                 for label, o, d in ray_cast_cases(mesh)]
     return {"rows": rows, "clock": clock, "walk_rows": walk_rows}
 
 
@@ -1093,8 +1099,7 @@ def _shade_sources(system, dm, n_px: int, n_px_trace: int) -> dict:
     cpu_tri = tuple(x.cpu() for x in ren.tri_data)
 
     def cpu_trace(o, d):
-        out = bvh_lib.cast_rays_chunked(cpu_bvh, o, d, tri_data=cpu_tri)
-        return None, None, out["t"][:, None], out["hit"]
+        return bvh_lib.occluded_chunked(cpu_bvh, o, d, tri_data=cpu_tri)
 
     res = {"pixel_bake_view_s": pixel_bake_s, "pixels": n_px, "pixels_raytrace_cpu": n_px_trace}
     saved = (mat.baked_visibility, mat.ray_trace_fun)
@@ -1106,7 +1111,7 @@ def _shade_sources(system, dm, n_px: int, n_px_trace: int) -> dict:
                "pixel": vis_lib.PixelVisibility(pix.table[:n], pix.oct_res),
                "raytrace": None}[source]
         mat.set_baked_visibility(saved[0] if source == "baked" else None)
-        mat.set_raytracer(ren.trace if source == "raytrace" else None)
+        mat.set_raytracer(ren.occlusion if source == "raytrace" else None)
         cpu_mat.set_baked_visibility(None if source != "baked" else vis_lib.BakedVisibility(
             saved[0].table.cpu(), saved[0].oct_res))
         cpu_mat.set_raytracer(cpu_trace if source == "raytrace" else None)
@@ -1134,13 +1139,12 @@ def _shade_sources(system, dm, n_px: int, n_px_trace: int) -> dict:
     # raytrace on all n_px pixels, on the card: the tracer through kernel B
     # against the same estimator with the plain caster as its tracer
     def plain_trace(o, d):
-        out = bvh_lib.cast_rays_plain(ren.bvh, o, d, chunk=2048, tri_data=ren.tri_data)
-        return None, None, out["t"][:, None], out["hit"]
+        return bvh_lib.cast_rays_plain(ren.bvh, o, d, chunk=2048, tri_data=ren.tri_data)["hit"]
 
     mat.set_baked_visibility(None)
     args = [x[:n_px] for x in (gb.fg_pos, gb.fg_normal, gb.fg_viewdir)]
     colours, secs = {}, {}
-    for name, tracer in (("kernel", ren.trace), ("plain", plain_trace)):
+    for name, tracer in (("kernel", ren.occlusion), ("plain", plain_trace)):
         mat.set_raytracer(tracer)
         with torch.no_grad():
             t0 = time.time()
@@ -1991,10 +1995,14 @@ def check_detectors(system, dm) -> dict:
     BatchNorm statistics taken from the render (``batchnorm_from_input``),
     the card's fp32 forward and the CPU's each against the fp64 forward of
     the same module on the CPU (fp32 rounding alone moves either by up to
-    3.3e-3 from it, ``tools/normalbae_rounding.py``, so card against CPU
-    can differ by twice that); as the run used it, card and CPU are only
-    reported, beside the card's fp64 forward, which shows how far rounding
-    alone moves it. TF32 is as the caller set it."""
+    3.0e-3 from it on a smooth image, ``tools/normalbae_rounding.py``, most
+    where the decoder's raw normal is near zero and its normalisation
+    magnifies the rounding, so card against CPU can differ by twice that;
+    the BatchNorms compute (x - mean) first, as the JAX package's, since
+    PyTorch's folded CPU form lost digits on flat channels); as the run used
+    it, card and CPU are only reported, beside the card's fp64 forward,
+    which shows how far rounding alone moves it. TF32 is as the caller set
+    it."""
     import copy
 
     g = system.guidance
@@ -4702,11 +4710,11 @@ BIG_TORUS = {"sd21": (2048, 1280), "tiny": (24, 12)}
 # and max, 4 across the axes, the max with 0, 2 compares); a Moller-Trumbore
 # test 53 (the two cross products 18, three dots 15, the scalings 3, the
 # division 1, the origin's offset 3, |det| and its compare 2, u + v 1 and
-# 5 compares). The H100's published fp32 rate counts an FMA as two
-# operations; the walk rounds every operation and issues no FMA.
+# 5 compares). The walk rounds every operation and issues no FMA, so its
+# bound takes kernel B's rate, one rounded operation a lane a clock
+# (FP32_LANES x clocks.max.sm), not the FMA-counted 67 TFLOP/s.
 WALK_SLAB_OPS = 25
 WALK_MT_OPS = 53
-PEAK_FP32_FLOPS = 67e12
 WALK_CHECK_RAYS = 65536
 
 
@@ -4720,12 +4728,15 @@ class CasterCalls:
 
         self.bvh_lib, self.cuda, self.calls, self._undo = bvh_lib, cuda, {}, []
         if not cuda:
+            self.calls["cast_rays_bvh_plain any_hit"] = 0
             for name in ("cast_rays_bvh_plain", "cast_rays_plain"):
                 fn = getattr(bvh_lib, name)
                 self.calls[name] = 0
 
                 def counted(*a, _fn=fn, _name=name, **k):
                     self.calls[_name] += 1
+                    if k.get("any_hit"):
+                        self.calls[_name + " any_hit"] += 1
                     return _fn(*a, **k)
 
                 setattr(bvh_lib, name, counted)
@@ -4734,6 +4745,11 @@ class CasterCalls:
     def walk(self) -> int:
         return (self.bvh_lib.cast_rays_bvh.launches if self.cuda
                 else self.calls["cast_rays_bvh_plain"])
+
+    def walk_any_hit(self) -> int:
+        """Kernel E's any-hit launches (the plain walk's any-hit calls)."""
+        return (self.bvh_lib.cast_rays_bvh.any_hit_launches if self.cuda
+                else self.calls["cast_rays_bvh_plain any_hit"])
 
     def dense(self) -> int:
         return (self.bvh_lib.cast_rays_dense.launches if self.cuda
@@ -4744,53 +4760,91 @@ class CasterCalls:
             setattr(self.bvh_lib, name, fn)
 
 
-def walk_bound(nodes: float, pairs: float, R: int, N: int, T: int) -> dict:
+def walk_bound(nodes: float, pairs: float, R: int, N: int, T: int, clock_hz: float,
+               out_bytes: int = 16) -> dict:
     """Kernel E's bound (ms): the larger of its fp32 operations (the nodes it
     visited times a slab test's, the pairs it tested times
-    Moller-Trumbore's) over the fp32 rate and the bytes of the rays in, the
-    results out and the nodes and triangles the walk touched read once, over
-    the memory rate. A node or triangle is touched at most once a visit or
-    test, so the run's counts cap the N nodes and T triangles of the BVH."""
-    t_ops = (nodes * WALK_SLAB_OPS + pairs * WALK_MT_OPS) / PEAK_FP32_FLOPS
-    t_bytes = (R * (24 + 16) + min(nodes, N) * 32 + min(pairs, T) * 48) / PEAK_BYTES
+    Moller-Trumbore's) over the fp32 instruction rate (``FP32_LANES`` x the
+    SM clock, as kernel B's ``cast_bounds``) and the bytes of the rays in,
+    the results out (``out_bytes`` a ray: t, face, u, v, or the any-hit
+    entry's 1-byte mask) and the boxes (32 bytes: half a record) and
+    triangles the walk touched read once, over the memory rate. A box or
+    triangle is touched at most once a visit or test, so the run's counts
+    cap the N nodes and T triangles of the BVH."""
+    t_ops = (nodes * WALK_SLAB_OPS + pairs * WALK_MT_OPS) / (FP32_LANES * clock_hz)
+    t_bytes = (R * (24 + out_bytes) + min(nodes, N) * 32 + min(pairs, T) * 48) / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def walk_case(label: str, bvh, packed, o, d) -> dict:
+def walk_case(label: str, bvh, packed, o, d, clock_hz: float, any_hit: bool = False) -> dict:
     """Kernel E on every ray of (o, d): the nodes it visits and the pairs it
     tests, its time (CUDA events after a warm-up), its bound; and on
     ``WALK_CHECK_RAYS`` rays spread over them, E against the plain walk,
-    which must agree bit for bit, each timed on those rays."""
+    which must agree bit for bit with the same nodes and pairs, each timed
+    on those rays. With ``any_hit`` the any-hit entry the same way (key
+    ``any_hit``): its mask bit for bit the plain any-hit walk's and the
+    plain closest-hit walk's, its counts the plain any-hit walk's and at
+    most the closest-hit entry's."""
     n_check = WALK_CHECK_RAYS
     from dreammat_tpu_torch.ops import bvh as bvh_lib
 
     o, d = o.float().contiguous(), d.float().contiguous()
-    R, N, T = o.shape[0], packed.nodes.shape[0], packed.tris.shape[0]
-    ctr = torch.zeros(2, dtype=torch.int64, device="cuda")
-    got = bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed, counters_out=ctr)
-    ms = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed), 3)
+    R, N, T = o.shape[0], bvh.node_min.shape[0], packed.tris.shape[0]
     sel = torch.arange(min(n_check, R), device="cuda") * max(R // n_check, 1)
     os_, ds = o[sel].contiguous(), d[sel].contiguous()
-    ms_checked = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, os_, ds, packed=packed), 3)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    ref = bvh_lib.cast_rays_bvh_plain(bvh, os_, ds)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
-    diff = cast_disagreement({k: v[sel] for k, v in got.items()}, ref)
-    if any(diff.values()):
-        raise AssertionError(f"walk {label}: kernel E and the plain walk differ: {diff}")
-    nodes, pairs = (float(x) for x in ctr.tolist())
-    row = dict(label=label, R=R, N=N, T=T, checked=int(sel.shape[0]), **diff, nodes=nodes,
-               pairs=pairs, nodes_per_ray=nodes / R, pairs_per_ray=pairs / R, ms=ms,
-               ms_checked=ms_checked, plain_ms_checked=plain_ms,
-               hit_frac=float(got["hit"].float().mean()), **walk_bound(nodes, pairs, R, N, T))
-    log(f"walk {label}: R={R} N={N} T={T} hits {row['hit_frac']:.3f}; {row['checked']} rays "
-        f"bit for bit equal to the plain walk | {row['nodes_per_ray']:.1f} nodes and "
-        f"{row['pairs_per_ray']:.2f} pairs a ray | kernel E {ms:.3f} ms ({R / ms / 1e3:.1f} "
-        f"Mrays/s), on the checked rays {ms_checked:.3f} ms, plain {plain_ms:.1f} ms | bound "
-        f"{row['bound_ms']:.4f} ms ({row['by']})")
+    row = dict(label=label, R=R, N=N, T=T, checked=int(sel.shape[0]))
+    ref_hit = None
+    for entry in (False, True) if any_hit else (False,):
+        ctr = torch.zeros(2, dtype=torch.int64, device="cuda")
+        got = bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed, counters_out=ctr, any_hit=entry)
+        ms = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, o, d, packed=packed, any_hit=entry), 3)
+        ms_checked = cuda_ms(lambda: bvh_lib.cast_rays_bvh(bvh, os_, ds, packed=packed,
+                                                            any_hit=entry), 3)
+        kc = torch.zeros(2, dtype=torch.int64, device="cuda")
+        bvh_lib.cast_rays_bvh(bvh, os_, ds, packed=packed, counters_out=kc, any_hit=entry)
+        pc = torch.zeros(2, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = bvh_lib.cast_rays_bvh_plain(bvh, os_, ds, counters_out=pc, any_hit=entry)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        name = "any-hit" if entry else "closest-hit"
+        if entry:
+            flips = int((got["hit"][sel] != ref["hit"]).sum())
+            diff = {"flips": flips,
+                    "flips_vs_closest": int((got["hit"][sel] != ref_hit).sum()),
+                    "t_err": 0.0 if flips == 0 else 1.0}
+        else:
+            diff = cast_disagreement({k: v[sel] for k, v in got.items()}, ref)
+            ref_hit = ref["hit"]
+        if any(diff.values()):
+            raise AssertionError(f"walk {label}: kernel E's {name} entry and the plain walk "
+                                 f"differ: {diff}")
+        if not torch.equal(kc, pc):
+            raise AssertionError(f"walk {label}: kernel E's {name} entry counted "
+                                 f"{kc.tolist()} nodes and pairs, the plain walk {pc.tolist()}")
+        nodes, pairs = (float(x) for x in ctr.tolist())
+        r = dict(**diff, nodes=nodes, pairs=pairs, nodes_per_ray=nodes / R,
+                 pairs_per_ray=pairs / R, ms=ms, ms_checked=ms_checked,
+                 plain_ms_checked=plain_ms, checked_counts=kc.tolist(),
+                 hit_frac=float(got["hit"].float().mean()),
+                 **walk_bound(nodes, pairs, R, N, T, clock_hz, 1 if entry else 16))
+        if entry:
+            if not (r["nodes"] <= row["nodes"] and r["pairs"] <= row["pairs"]):
+                raise AssertionError(f"walk {label}: the any-hit entry did more work than the "
+                                     f"closest-hit entry: {r} {row}")
+            row["any_hit"] = r
+        else:
+            row.update(r)
+        log(f"walk {label} ({name}): R={R} N={N} T={T} hits {r['hit_frac']:.3f}; "
+            f"{row['checked']} rays bit for bit equal to the plain walk"
+            + (" and to the plain closest-hit walk's mask" if entry else "")
+            + f", nodes and pairs {kc.tolist()} as the plain walk's | {r['nodes_per_ray']:.1f} "
+            f"nodes and {r['pairs_per_ray']:.2f} pairs a ray | kernel E {ms:.3f} ms "
+            f"({R / ms / 1e3:.1f} Mrays/s), on the checked rays {ms_checked:.3f} ms, plain "
+            f"{plain_ms:.1f} ms | bound {r['bound_ms']:.4f} ms ({r['by']}, "
+            f"{clock_hz / 1e6:.0f} MHz x {FP32_LANES} lanes)")
     return row
 
 
@@ -4847,16 +4901,20 @@ def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
         return texel["rays"]
 
     calls = CasterCalls(cuda)
+    # kernel E's launches by stage, all entries and the any-hit entry's
     stages = StageLaunches(counter=calls.walk)
-    stages.wrap(RaytraceRenderer, "build_gbuffers_batched", "gbuffers")
-    stages.wrap(vis_lib, "bake_vertex_visibility", "vertex_bake")
-    stages.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
-    stages.wrap(RaytraceRenderer, "build_gbuffer", "test_renders")
-    stages.wrap(exporter_lib, "rasterize_uv_texels", "texel_bake")
+    stages_any = StageLaunches(counter=calls.walk_any_hit)
+    for s in (stages, stages_any):
+        s.wrap(RaytraceRenderer, "build_gbuffers_batched", "gbuffers")
+        s.wrap(vis_lib, "bake_vertex_visibility", "vertex_bake")
+        s.wrap(RandomCameraDataModule, "_fastpath_gate", "gate")
+        s.wrap(RaytraceRenderer, "build_gbuffer", "test_renders")
+        s.wrap(exporter_lib, "rasterize_uv_texels", "texel_bake")
     bvh_lib.build_bvh, exporter_lib.uv_texel_rays = timed_build, kept_texel_rays
     for fn in (attn.flash_attention_fwd, attn.flash_attention_bwd_dq,
                attn.flash_attention_bwd_dkv, bvh_lib.cast_rays_dense, bvh_lib.cast_rays_bvh):
         fn.launches = 0
+    bvh_lib.cast_rays_bvh.any_hit_launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -4865,6 +4923,7 @@ def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
         if cuda:
             torch.cuda.synchronize()
     finally:
+        stages_any.restore()
         stages.restore()
         bvh_lib.build_bvh, exporter_lib.uv_texel_rays = real_build, real_texel_rays
         calls.close()
@@ -4873,6 +4932,8 @@ def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
     ren = system.renderer
     res["walk_by_stage"], res["stage_s"] = dict(stages.counts), dict(stages.seconds)
     res["walk"], res["dense"] = calls.walk(), calls.dense()
+    res["walk_any_hit"] = calls.walk_any_hit()
+    res["walk_any_hit_by_stage"] = dict(stages_any.counts)
     res["bvh_builds"] = builds
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     kernel_a = attn.flash_attention_fwd.launches
@@ -4883,6 +4944,10 @@ def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
         and isinstance(ren.tri_data, bvh_lib.PackedBVH) and len(f) > bvh_lib.DENSE_CAST_MAX_TRIS,
         "native BVH builder": bvh_lib._NATIVE["lib"] is not None and len(builds) == 2,
         "the walk in every stage": all(n > 0 for n in stages.counts.values()),
+        # the bake and the gate read only the hit mask: the any-hit entry
+        # alone; the G-buffers, test renders and texel bake its closest-hit
+        "the any-hit entry in the bake and the gate alone": stages_any.counts == {
+            k: n if k in ("vertex_bake", "gate") else 0 for k, n in stages.counts.items()},
         "kernel B never": res["dense"] == 0,
         "gate ran": dm.gate.get("rmse") is not None and dm.gate.get("grad_cos") is not None,
         "losses finite": len(system.step_losses) == steps
@@ -4914,11 +4979,13 @@ def drive_big_mesh(work: str, device: str = "cuda", size: str = "sd21") -> dict:
         step_kinds=list(system.step_kinds), losses=list(system.step_losses),
         test_s=list(system.test_seconds), export_s=dict(system.exporter.seconds),
         counts={"flash_attn_fwd": kernel_a, "ray_cast": res["dense"],
-                "bvh_traverse": res["walk"]})
+                "bvh_traverse": res["walk"] - res["walk_any_hit"],
+                "bvh_occluded": res["walk_any_hit"]})
     builds_txt = "; ".join(f"{b_['triangles']} triangles in {b_['seconds']:.2f}s" for b_ in builds)
     log(f"big mesh: launch_torch.py --train on the torus .glb ({V} vertices, {len(f)} "
         f"triangles) in {res['seconds']['launch']:.1f}s; BVH builds {builds_txt}; "
-        f"{'kernel E' if cuda else 'plain walk'} by stage {stages.counts}, dense caster "
+        f"{'kernel E' if cuda else 'plain walk'} by stage {stages.counts} (any-hit entry "
+        f"{stages_any.counts}), dense caster "
         f"{res['dense']}; kernel A {kernel_a}; peak {res['peak_gb']} GB")
     log(f"big mesh: prerender {', '.join(f'{k} {x:.3f}s' for k, x in dm.data.seconds.items())}; "
         f"gate: self-occlusion {gate['occlusion']}, RMSE {gate['rmse']}, grad-cos "
@@ -4954,7 +5021,10 @@ def phase_big_mesh() -> dict:
     ubvh, uo, ud = res.pop("texel")
     ren, mat = system.renderer, system.material
     t0 = time.time()
-    rows = [walk_case(label, ren.bvh, ren.tri_data, o, d) for label, o, d in ray_cast_cases(ren.mesh)]
+    clock = sm_clock_hz()
+    # the view (closest-hit, as the G-buffers) and the bake chunk (both entries)
+    rows = [walk_case(label, ren.bvh, ren.tri_data, o, d, clock, any_hit=i == 1)
+            for i, (label, o, d) in enumerate(ray_cast_cases(ren.mesh))]
     gb = dm.data.gbuffers[0]
     P = gb.fg_pos.shape[0]
     r = torch.full((P, 1), 0.3, device="cuda")
@@ -4963,10 +5033,10 @@ def phase_big_mesh() -> dict:
                       mat.sample_specular_directions(refl, r)], dim=1).reshape(-1, 3)
     pts = gb.fg_pos[:, None].expand(-1, dirs.shape[0] // P, 3).reshape(-1, 3)
     rows.append(walk_case(f"gate shadow rays ({P} px x {dirs.shape[0] // P})", ren.bvh,
-                          ren.tri_data, pts + dirs * 1e-5, dirs))
+                          ren.tri_data, pts + dirs * 1e-5, dirs, clock, any_hit=True))
     del pts, dirs
     rows.append(walk_case(f"texel bake {int(uo.shape[0] ** 0.5)}^2", ubvh,
-                          bvh_lib.cast_data(ubvh), uo, ud))
+                          bvh_lib.cast_data(ubvh), uo, ud, clock))
     res["seconds"]["checks"] = time.time() - t0
     res["rows"] = rows
     del system, dm, ren, mat, gb, ubvh, uo, ud
@@ -5238,28 +5308,55 @@ def main() -> int:
                  f"tested after the cull; bound over all pairs {b['bound_all_pairs_ms']:.4g} ms"},
     ]
     # kernel E: the rows of main path 13's mesh (of the kernel phase's
-    # icosphere with --kernels-only); its largest shape in the line
+    # icosphere with --kernels-only); its largest shape in the line, for
+    # each of its two entries
     walk_rows = big_res["rows"] if big_res else cast_res["walk_rows"]
     e = max(walk_rows, key=lambda r: r["R"])
+    e_any = max((r for r in walk_rows if "any_hit" in r), key=lambda r: r["R"])
+    shape_keys = ("label", "R", "N", "T", "checked", "flips", "face_diff", "uv_diff",
+                  "nodes_per_ray", "pairs_per_ray", "ms", "ms_checked", "plain_ms_checked",
+                  "bound_ms", "by", "hit_frac")
+    any_keys = ("flips", "flips_vs_closest", "nodes_per_ray", "pairs_per_ray", "ms",
+                "ms_checked", "plain_ms_checked", "bound_ms", "by", "hit_frac")
     kernels.append({
         "name": "bvh_traverse", "route": "cuda",
         "source": "dreammat_tpu_torch/csrc/bvh_traverse.cu",
         "replaces": "dreammat_tpu/ops/bvh.py:327",
         "replaces_note": "cast_rays, the JAX package's BVH walk: an XLA while_loop, no "
-                         "pallas_call",
-        "launches": big_res and big_res["walk"],
-        "launches_by_path": {"big_mesh": big_res and big_res["walk"],
-                             "big_mesh_by_stage": big_res and big_res["walk_by_stage"]},
+                         "pallas_call; this is the kernel's closest-hit entry",
+        "launches": big_res and big_res["walk"] - big_res["walk_any_hit"],
+        "launches_by_path": {"big_mesh": big_res and big_res["walk"] - big_res["walk_any_hit"],
+                             "big_mesh_by_stage": big_res and {
+                                 k: n - big_res["walk_any_hit_by_stage"][k]
+                                 for k, n in big_res["walk_by_stage"].items()}},
         "max_abs_err": max(r["t_err"] for r in walk_rows),
         "ms": e["ms"], "plain_ms": e["plain_ms_checked"], "bound_ms": e["bound_ms"],
         "bound_by": e["by"], "library_ms": None,
-        "shapes": [{k: r[k] for k in ("label", "R", "N", "T", "checked", "flips", "face_diff",
-                                      "uv_diff", "nodes_per_ray", "pairs_per_ray", "ms",
-                                      "ms_checked", "plain_ms_checked", "bound_ms", "by",
-                                      "hit_frac")} for r in walk_rows],
+        "shapes": [{k: r[k] for k in shape_keys} for r in walk_rows],
         "work": f"R={e['R']} rays, N={e['N']} nodes, T={e['T']} triangles fp32, "
                 f"{e['nodes_per_ray']:.1f} nodes and {e['pairs_per_ray']:.2f} pairs a ray; "
                 f"plain_ms on {e['checked']} of the rays (ms_checked: the kernel on them)"})
+    a_ = e_any["any_hit"]
+    kernels.append({
+        "name": "bvh_occluded", "route": "cuda",
+        "source": "dreammat_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "dreammat_tpu/ops/bvh.py:848",
+        "replaces_note": "occlusion_rays, the JAX walk's hit mask (cast_rays, an XLA "
+                         "while_loop, no pallas_call): kernel E's any-hit entry, from the "
+                         "same source as bvh_traverse",
+        "launches": big_res and big_res["walk_any_hit"],
+        "launches_by_path": {"big_mesh": big_res and big_res["walk_any_hit"],
+                             "big_mesh_by_stage": big_res and big_res["walk_any_hit_by_stage"]},
+        "max_abs_err": max(r["any_hit"]["t_err"] for r in walk_rows if "any_hit" in r),
+        "ms": a_["ms"], "plain_ms": a_["plain_ms_checked"], "bound_ms": a_["bound_ms"],
+        "bound_by": a_["by"], "library_ms": None,
+        "shapes": [{"label": r["label"], "R": r["R"], **{k: r["any_hit"][k] for k in any_keys}}
+                   for r in walk_rows if "any_hit" in r],
+        "work": f"R={e_any['R']} rays ({e_any['label']}), the hit mask alone, "
+                f"{a_['nodes_per_ray']:.1f} nodes and {a_['pairs_per_ray']:.2f} pairs a ray "
+                f"(the closest-hit entry {e_any['nodes_per_ray']:.1f} and "
+                f"{e_any['pairs_per_ray']:.2f}); max_abs_err: 0 when the mask is bit for bit "
+                f"the plain walk's"})
     with open(os.path.join(args.out, "result.json"), "w") as f:
         json.dump({"attention": attn_res, "attention_sds": attn_sds, "texcraft": tex_res,
                    "attention_volume": attn_vol, "attention_bwd_volume": bwd_vol,

@@ -10,7 +10,7 @@ condition resolution (``probe_view_for_camera``, which also serves one
 sampled camera of the random-camera mode). ``vertex_table_for_camera``
 makes the table of any camera (the eval views). The fast-path gate's two
 measures compare the tables with the exact MC estimator (shadow rays
-through the renderer's ``trace``): ``fastpath_residual`` (relative colour RMSE of one view) and
+through the renderer's ``occlusion``): ``fastpath_residual`` (relative colour RMSE of one view) and
 ``fastpath_grad_cos`` (cosine of the material gradients on a pixel subset;
 its weights are the named draw ``gate_w``).
 
@@ -161,7 +161,7 @@ def _view_table(data: PrerenderData, view_id: int, env_id: int) -> torch.Tensor:
 
 class _ExactMC:
     """Within the block, the material shades through the exact estimator:
-    no baked table, shadow rays through ``renderer.trace``."""
+    no baked table, shadow rays through ``renderer.occlusion``."""
 
     def __init__(self, renderer, material):
         self.renderer, self.material = renderer, material
@@ -169,7 +169,7 @@ class _ExactMC:
     def __enter__(self):
         self.saved = (self.material.baked_visibility, self.material.ray_trace_fun)
         self.material.set_baked_visibility(None)
-        self.material.set_raytracer(self.renderer.trace)
+        self.material.set_raytracer(self.renderer.occlusion)
 
     def __exit__(self, *exc):
         self.material.set_baked_visibility(self.saved[0])

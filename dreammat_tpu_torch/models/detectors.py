@@ -202,9 +202,28 @@ class Conv2dSame(nn.Conv2d):
                         self.stride, 0, 1, self.groups)
 
 
+class CenteredBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose inference is the JAX package's ``_bn``: the
+    mean subtracted first, (x - mean) * (rsqrt(var + eps) * weight) + bias.
+    PyTorch's CPU inference folds it into x * a + (bias - mean * a), which
+    on a channel whose mean is large beside its spread (a flat region of a
+    render, the statistics taken from that render) keeps the rounding of
+    the large x * a in a small result: 160-1560 times the centred form's
+    error against fp64 there (``tests/test_torch_normalbae_rounding.py``).
+    Training (the statistics' update) is PyTorch's; the state dict is
+    ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training or self.running_mean is None:
+            return super().forward(x)
+        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return torch.addcmul(self.bias[:, None, None], x - self.running_mean[:, None, None],
+                             scale[:, None, None])
+
+
 def _bn_tf(c: int) -> nn.BatchNorm2d:
     """The encoder's BatchNorm: the TF-ported weights use eps 1e-3."""
-    return nn.BatchNorm2d(c, eps=1e-3)
+    return CenteredBatchNorm2d(c, eps=1e-3)
 
 
 class WSConv2d(nn.Conv2d):
@@ -311,7 +330,7 @@ class UpBlock(nn.Module):
     def __init__(self, cin: int, cout: int, gn: bool):
         super().__init__()
         conv = WSConv2d if gn else nn.Conv2d
-        norm = (lambda c: nn.GroupNorm(8, c)) if gn else nn.BatchNorm2d
+        norm = (lambda c: nn.GroupNorm(8, c)) if gn else CenteredBatchNorm2d
         self._net = nn.Sequential(conv(cin, cout, 3, padding=1), norm(cout), nn.LeakyReLU(0.01),
                                   conv(cout, cout, 3, padding=1), norm(cout), nn.LeakyReLU(0.01))
 

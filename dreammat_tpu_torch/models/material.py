@@ -86,11 +86,12 @@ def geometry_ggx_smith_correlated(NoV, NoL, roughness_sq):
 
 
 def occlusion_nograd(trace_fn: Callable, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """The shadow rays' hit mask [N], a constant to autograd: occlusion is
-    piecewise constant in the ray, and the reference's BVH is not
-    differentiable either. The trace runs under ``no_grad``."""
+    """The shadow rays' hit mask [N] (``trace_fn``'s, see ``set_raytracer``),
+    a constant to autograd: occlusion is piecewise constant in the ray, and
+    the reference's BVH is not differentiable either. The trace runs under
+    ``no_grad``."""
     with torch.no_grad():
-        return trace_fn(o.detach(), d.detach())[3]
+        return trace_fn(o.detach(), d.detach())
 
 
 def _fibonacci_unit(n: int) -> np.ndarray:
@@ -174,8 +175,8 @@ class DreamMatMaterial(BaseObject):
         return self.splitsum
 
     def set_raytracer(self, fn: Optional[Callable]) -> None:
-        """fn(rays_o [N,3], rays_d [N,3]) -> (positions, normals, depth,
-        hit_mask), the renderer's ``trace``."""
+        """fn(rays_o [N,3], rays_d [N,3]) -> hit mask [N] bool, the
+        renderer's ``occlusion``: the shadow rays read nothing else."""
         self.ray_trace_fun = fn
 
     def set_baked_visibility(self, baked) -> None:

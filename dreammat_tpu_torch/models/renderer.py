@@ -10,7 +10,7 @@ inverse-normalized depth and the interpolated texture coordinates
 a fixed pixel budget (``build_gbuffer_from_rays``), the visibility source
 chosen at configure time (``visibility_mode``: ``baked`` per-vertex tables,
 on the mesh split ``visibility_subdiv`` times by ``subdivide_mesh``;
-``raytrace`` shadow rays through ``trace``; or ``none``), and
+``raytrace`` shadow rays through ``occlusion``; or ``none``), and
 ``shade_view``: field query at the G-buffer points (at their texture
 coordinates for the UV-space field) and at the jittered points, shading
 (tables, the MC estimator or the split-sum environment), scatter into the
@@ -187,11 +187,8 @@ class RaytraceRenderer(BaseObject):
         self.bvh = bvh_lib.build_bvh(
             self.mesh.v_pos.cpu().numpy(), self.mesh.t_pos_idx.cpu().numpy(), device=self.device)
         self.tri_data = bvh_lib.cast_data(self.bvh)
-        tri = self.mesh.v_pos[self.mesh.t_pos_idx]
-        n = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
-        self.face_normals = n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-20)
         if self.cfg.visibility_mode == "raytrace":
-            self.material.set_raytracer(self.trace)
+            self.material.set_raytracer(self.occlusion)
         elif self.cfg.visibility_mode == "baked":
             from dreammat_tpu_torch.ops import visibility as vis_lib
 
@@ -200,19 +197,17 @@ class RaytraceRenderer(BaseObject):
                 oct_res=self.cfg.visibility_oct_res, supersample=self.cfg.visibility_supersample,
             ))
 
-    def trace(self, rays_o: torch.Tensor, rays_d: torch.Tensor):
-        """The reference's trace: (positions, face normals, depth [N,1],
-        hit mask). At or below ``DENSE_CAST_MAX_TRIS`` triangles the JAX
-        package runs its shadow rays through the XLA dense caster, not its
-        Pallas kernel; here they go through ``cast_rays_chunked``, so kernel
-        B on the card. That changes no answer: kernel B returns bit for bit
-        what the plain caster (``cast_rays_plain``, the port of the JAX dense
-        caster) returns. Above it both walk the BVH (kernel E on the card)."""
-        out = bvh_lib.cast_rays_chunked(self.bvh, rays_o, rays_d, tri_data=self.tri_data)
-        t = out["t"]
-        positions = rays_o + t[:, None] * rays_d
-        normals = self.face_normals[torch.clamp(out["face"], min=0).long()]
-        return positions, normals, t[:, None], out["hit"]
+    def occlusion(self, rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+        """The material's tracer: the hit mask [N] of the reference's
+        ``trace`` (whose positions, normals and depth no consumer of the
+        shadow rays reads). At or below ``DENSE_CAST_MAX_TRIS`` triangles
+        the JAX package runs its shadow rays through the XLA dense caster,
+        not its Pallas kernel; here they go through ``occluded_chunked``, so
+        kernel B on the card, which returns bit for bit what the plain caster
+        (``cast_rays_plain``, the port of the JAX dense caster) returns.
+        Above it both walk the BVH: here kernel E's any-hit entry, whose
+        mask is the closest-hit walk's."""
+        return bvh_lib.occluded_chunked(self.bvh, rays_o, rays_d, tri_data=self.tri_data)
 
     def build_gbuffer(self, rays_o: torch.Tensor, rays_d: torch.Tensor, w2c: torch.Tensor,
                       pixel_budget: Optional[int] = None) -> GBufferView:

@@ -19,8 +19,9 @@ Counterpart of ``dreammat_tpu/ops/bvh.py`` for the ported path:
 - ``cast_rays_chunked``: the dispatcher the renderer, the bakes and the
   export call. At or below ``DENSE_CAST_MAX_TRIS`` triangles it takes the
   dense caster, above it the walk, as the JAX package does; ``cast_data``
-  makes once per BVH what the chosen caster reads. ``occlusion_rays`` is
-  the walk's hit mask.
+  makes once per BVH what the chosen caster reads. ``occluded_chunked`` is
+  its hit mask, through the walk's any-hit entry above the threshold;
+  ``occlusion_rays`` the walk's any-hit mask at every size.
 
 Miss semantics: t = 10 (``MISS_DEPTH``), face = -1, u = v = 0.
 """
@@ -468,7 +469,7 @@ def _moller_trumbore(o, d, v0, e1, e2):
 
 
 def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
-                        counters_out: Optional[torch.Tensor] = None
+                        counters_out: Optional[torch.Tensor] = None, any_hit: bool = False
                         ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch BVH walk (the JAX package's ``cast_rays``), vectorised
     over rays: each ray starts at the root and, per step, tests its node's
@@ -478,7 +479,10 @@ def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     the best only with a strictly smaller t (so the first of equal t wins).
     Rays that have left the tree drop out. ``counters_out``, an int64 [2]
     tensor, gets the nodes visited and the (ray, triangle) pairs tested
-    added to it."""
+    added to it. ``any_hit``: the same walk, each ray dropped at its first
+    valid pair (t < t_max), returning ``{"hit": ...}`` alone; until that
+    pair it tests what the closest-hit walk tests, so its mask is that
+    walk's."""
     o = rays_o.float()
     d = rays_d.float()
     inv = _inv_dir(d)
@@ -493,6 +497,7 @@ def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     tri_id = bvh.tri_id.to(torch.int32)
     idx = torch.arange(R, device=dev)
     cur = torch.zeros(R, dtype=torch.long, device=dev)
+    found = torch.zeros(R, dtype=torch.bool, device=dev)
     nodes = pairs = 0
     while idx.numel():
         box, links = node_box[cur], node_links[cur]
@@ -503,6 +508,8 @@ def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
         leaf = torch.nonzero(met & (count > 0))[:, 0]
         for lane in range(LEAF_SIZE):
             sel = leaf[count[leaf] > lane]
+            if any_hit:
+                sel = sel[~found[idx[sel]]]
             if not sel.numel():
                 break
             pairs += sel.numel()
@@ -513,54 +520,99 @@ def cast_rays_bvh_plain(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
             ray = idx[sel]
             better = valid & (t < tb[ray])
             ray, slot = ray[better], slot[better]
+            if any_hit:
+                found[ray] = True
+                continue
             tb[ray], ub[ray], vb[ray] = t[better], u[better], v[better]
             fb[ray] = tri_id[slot]
         nxt = torch.where(met & (count == 0), cur + 1, links[:, 0])
-        keep = nxt >= 0
+        keep = (nxt >= 0) & ~found[idx]
         idx, cur = idx[keep], nxt[keep]
     if counters_out is not None:
         counters_out += torch.tensor([nodes, pairs], dtype=torch.int64, device=counters_out.device)
-    return _finish(tb, fb, ub, vb)
+    return {"hit": found} if any_hit else _finish(tb, fb, ub, vb)
 
 
 class PackedBVH(NamedTuple):
     """Kernel E's view of a BVH (``pack_bvh``)."""
-    nodes: torch.Tensor  # [N, 8] f32: (min xyz, miss link), (max xyz, first * 8 + count)
+    nodes: torch.Tensor  # [M, 16] f32 records: (lo1, word1), (hi1, word2), (lo2, word2), (hi2, next)
     tris: torch.Tensor   # [T, 12] f32: (v0 xyz, id), (e1 xyz, 0), (e2 xyz, 0); ints as bits
 
 
 def pack_bvh(bvh: FlatBVH) -> PackedBVH:
-    """Nodes as two float4 each and triangles as three, the integers stored
-    as their bits: what kernel E reads. Made once per BVH (the renderer
-    keeps it as its ``tri_data``)."""
-    if bvh.tri_v0.shape[0] >= 1 << 28:
+    """What kernel E reads, the integers stored as their bits; made once per
+    BVH (the renderer keeps it as its ``tri_data``). Triangles as three
+    float4. Nodes as 64-byte records, one per internal node in DFS order
+    after a virtual record 0 whose first child is the root and which has no
+    second: an internal node P's record holds the boxes of its children,
+    the first P + 1 and the second P + 1's miss link, each with its word (a
+    leaf's first slot * 8 + its count, an internal node's record * 8; -1
+    for no second child), the second word in both halves, and in the second
+    half the record whose second child is the second child's miss link (-1
+    when that link is -1): (lo1, word1), (hi1, word2), (lo2, word2), (hi2,
+    next), so either child's half is two float4. The skip-link walk's next
+    node after a second child is that link, so the walk over the records
+    tests the nodes in the walk's order. Raises if a miss link leads to a
+    node that is no internal node's second child (not the builders'
+    layout)."""
+    T = bvh.tri_v0.shape[0]
+    if T >= 1 << 28:
         raise ValueError("kernel E codes a leaf's first slot in 28 bits: at most 2^28 slots")
+    dev = bvh.node_min.device
     bits = lambda x: x.to(torch.int32).view(torch.float32)[:, None]
-    code = torch.where(bvh.node_count > 0, bvh.node_first * 8 + bvh.node_count,
-                       torch.zeros_like(bvh.node_count))
-    nodes = torch.cat([bvh.node_min, bits(bvh.node_miss), bvh.node_max, bits(code)], dim=1)
+    miss, count = bvh.node_miss.long(), bvh.node_count.long()
+    N = miss.shape[0]
+    inner = torch.nonzero(count == 0)[:, 0]
+    record = torch.zeros(N, dtype=torch.long, device=dev)
+    record[inner] = torch.arange(1, inner.shape[0] + 1, device=dev)
+    word = torch.where(count > 0, bvh.node_first.long() * 8 + count, record * 8)
+    parent = torch.cat([torch.full((1,), -1, dtype=torch.long, device=dev), inner])
+    first = parent + 1                                   # the root under record 0
+    second = torch.where(parent >= 0, miss[first.clamp(max=N - 1)], -1)
+    has2 = second >= 0
+    # the record whose second child a node is (-1: none)
+    owner = torch.full((N,), -1, dtype=torch.long, device=dev)
+    owner[second[has2]] = torch.arange(parent.shape[0], device=dev)[has2]
+    after = torch.where(has2, miss[second.clamp(min=0)], -1)
+    nxt = torch.where(after >= 0, owner[after.clamp(min=0)], -1)
+    if bool(((after >= 0) & (nxt < 0)).any()):
+        raise ValueError("a miss link leads to no internal node's second child: not a "
+                         "skip-link DFS layout")
+    s2 = second.clamp(min=0)
+    zero = torch.zeros_like(bvh.node_min[:1]).expand(parent.shape[0], 3)
+    word2 = bits(torch.where(has2, word[s2], -1))
+    nodes = torch.cat([
+        bvh.node_min[first], bits(word[first]), bvh.node_max[first], word2,
+        torch.where(has2[:, None], bvh.node_min[s2], zero), word2,
+        torch.where(has2[:, None], bvh.node_max[s2], zero), bits(nxt)], dim=1)
     zero = torch.zeros_like(bvh.tri_v0[:, :1])
     tris = torch.cat([bvh.tri_v0, bits(bvh.tri_id), bvh.tri_e1, zero, bvh.tri_e2, zero], dim=1)
     return PackedBVH(nodes.contiguous(), tris.contiguous())
 
 
 _WALK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 6
+_OCCLUDED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
 
 
 def cast_rays_bvh(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
                   packed: Optional[PackedBVH] = None,
-                  counters_out: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """First hit by the BVH walk. CUDA tensors launch kernel E on
+                  counters_out: Optional[torch.Tensor] = None,
+                  any_hit: bool = False) -> Dict[str, torch.Tensor]:
+    """First hit by the BVH walk, or with ``any_hit`` the hit mask alone
+    (``{"hit": ...}``, the walk stopped at each ray's first valid pair).
+    CUDA tensors launch kernel E's closest-hit or any-hit entry on
     ``packed`` (``pack_bvh(bvh)`` when not given); CPU tensors run
     ``cast_rays_bvh_plain``. ``counters_out``, an int64 [2] tensor on the
     rays' device, if given, has the nodes visited and the (ray, triangle)
-    pairs tested added to it."""
+    pairs tested added to it. ``launches`` counts the kernel's launches,
+    ``any_hit_launches`` those of the any-hit entry."""
     if counters_out is not None and (counters_out.dtype != torch.int64
                                      or counters_out.shape != (2,)
                                      or counters_out.device != rays_o.device):
         raise ValueError("counters_out must be an int64 [2] tensor on the rays' device")
     if rays_o.device.type == "cpu":
-        return cast_rays_bvh_plain(bvh, rays_o, rays_d, t_max=t_max, counters_out=counters_out)
+        return cast_rays_bvh_plain(bvh, rays_o, rays_d, t_max=t_max, counters_out=counters_out,
+                                   any_hit=any_hit)
     packed = pack_bvh(bvh) if packed is None else packed
     for name, x in (("rays_o", rays_o), ("rays_d", rays_d)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
@@ -571,32 +623,43 @@ def cast_rays_bvh(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
         raise ValueError("rays_o and rays_d differ in shape")
     if not isinstance(packed, PackedBVH):
         raise ValueError("packed must be pack_bvh's PackedBVH")
-    for name, x, width in (("nodes", packed.nodes, 8), ("tris", packed.tris, 12)):
+    for name, x, width in (("nodes", packed.nodes, 16), ("tris", packed.tris, 12)):
         if x.device != rays_o.device or x.dtype != torch.float32 or x.dim() != 2 \
                 or x.shape[1] != width or not x.is_contiguous():
             raise ValueError(f"packed {name} must be float32 [.,{width}] on the rays' device")
     from dreammat_tpu_torch.ops import kernels
 
-    fn = kernels.function("bvh_traverse", "bvh_traverse", _WALK_ARGTYPES)
     R, dev = rays_o.shape[0], rays_o.device
-    t = torch.empty(R, dtype=torch.float32, device=dev)
-    face = torch.empty(R, dtype=torch.int32, device=dev)
-    u = torch.empty(R, dtype=torch.float32, device=dev)
-    v = torch.empty(R, dtype=torch.float32, device=dev)
-    if R == 0:
-        return _finish(t, face, u, v)
-    rc = fn(rays_o.data_ptr(), rays_d.data_ptr(), packed.nodes.data_ptr(),
-            packed.tris.data_ptr(), R, float(t_max), t.data_ptr(), face.data_ptr(),
-            u.data_ptr(), v.data_ptr(),
-            None if counters_out is None else counters_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    ctr = None if counters_out is None else counters_out.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (rays_o.data_ptr(), rays_d.data_ptr(), packed.nodes.data_ptr(),
+            packed.tris.data_ptr(), R, float(t_max))
+    if any_hit:
+        hit = torch.empty(R, dtype=torch.bool, device=dev)
+        if R == 0:
+            return {"hit": hit}
+        fn = kernels.function("bvh_traverse", "bvh_occluded", _OCCLUDED_ARGTYPES)
+        rc = fn(*args, hit.data_ptr(), ctr, stream)
+    else:
+        t = torch.empty(R, dtype=torch.float32, device=dev)
+        face = torch.empty(R, dtype=torch.int32, device=dev)
+        u = torch.empty(R, dtype=torch.float32, device=dev)
+        v = torch.empty(R, dtype=torch.float32, device=dev)
+        if R == 0:
+            return _finish(t, face, u, v)
+        fn = kernels.function("bvh_traverse", "bvh_traverse", _WALK_ARGTYPES)
+        rc = fn(*args, t.data_ptr(), face.data_ptr(), u.data_ptr(), v.data_ptr(), ctr, stream)
     if rc != 0:
         raise RuntimeError(f"bvh_traverse kernel launch failed (cudaError {rc})")
     cast_rays_bvh.launches += 1
+    if any_hit:
+        cast_rays_bvh.any_hit_launches += 1
+        return {"hit": hit}
     return _finish(t, face, u, v)
 
 
 cast_rays_bvh.launches = 0
+cast_rays_bvh.any_hit_launches = 0
 
 
 def uses_walk(bvh: FlatBVH) -> bool:
@@ -624,9 +687,22 @@ def cast_rays_chunked(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
     return cast_rays_dense(bvh, o, d, t_max=t_max, tri_data=tri_data)
 
 
+def occluded_chunked(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH,
+                     tri_data=None) -> torch.Tensor:
+    """``cast_rays_chunked``'s hit mask, bool [R], for the callers that read
+    nothing else (the visibility bakes, the shadow rays): the dense caster's
+    at or below ``DENSE_CAST_MAX_TRIS`` triangles, above it the walk's
+    any-hit entry, which stops each ray at its first hit and returns the
+    same mask."""
+    o, d = rays_o.float().contiguous(), rays_d.float().contiguous()
+    if uses_walk(bvh):
+        return cast_rays_bvh(bvh, o, d, t_max=t_max, packed=tri_data, any_hit=True)["hit"]
+    return cast_rays_dense(bvh, o, d, t_max=t_max, tri_data=tri_data)["hit"]
+
+
 def occlusion_rays(bvh: FlatBVH, rays_o, rays_d, t_max: float = MISS_DEPTH) -> torch.Tensor:
     """Occlusion query, bool [R]: a hit of the BVH walk closer than
     ``t_max`` (the JAX package's ``occlusion_rays``, which walks at every
-    mesh size)."""
+    mesh size), by the walk's any-hit entry."""
     return cast_rays_bvh(bvh, rays_o.float().contiguous(), rays_d.float().contiguous(),
-                         t_max=t_max)["hit"]
+                         t_max=t_max, any_hit=True)["hit"]

@@ -1,8 +1,9 @@
 """Baked visibility, its lookups, and the octahedral convolution bakes.
 
 Counterpart of ``dreammat_tpu/ops/visibility.py``: the octahedral direction
-mapping and its bilinear footprint, ``bake_vertex_visibility`` (V x O^2 rays
-through the dense caster, kernel B on the card) and its per-pixel twin
+mapping and its bilinear footprint, ``bake_vertex_visibility`` (V x O^2 rays,
+their hit mask from ``occluded_chunked``: kernel B on the card, kernel E's
+any-hit entry above 2^22 triangles) and its per-pixel twin
 ``bake_pixel_visibility``, the Monte-Carlo estimators' lookups
 (``lookup_visibility``, barycentric over a triangle's vertex tables, and
 ``lookup_visibility_pixel``), ``self_occlusion_fraction``, the fused env x
@@ -175,7 +176,9 @@ def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: tor
     """Cast V x (oct_res*supersample)^2 rays once (origins pushed off the
     surface along the normal and the ray); each bin stores the fraction of
     its sub-rays that escape. Each chunk's rays go to the caster in
-    ``bake_rays``' order and their hits are scattered back per vertex."""
+    ``bake_rays``' order and their hits are scattered back per vertex; only
+    the hit mask is read (``occluded_chunked``: kernel B at or below
+    ``DENSE_CAST_MAX_TRIS`` triangles, kernel E's any-hit entry above)."""
     V = v_pos.shape[0]
     s = max(int(supersample), 1)
     N = oct_res * s
@@ -189,9 +192,9 @@ def bake_vertex_visibility(bvh: bvh_lib.FlatBVH, v_pos: torch.Tensor, v_nrm: tor
         vn = v_nrm[i:i + point_chunk]
         c = vp.shape[0]
         origins, directions, order = bake_rays(vp, vn, dirs, eps)
-        out = bvh_lib.cast_rays_chunked(bvh, origins, directions, tri_data=tri_data)
+        occluded = bvh_lib.occluded_chunked(bvh, origins, directions, tri_data=tri_data)
         hit = torch.empty(c, N2, dtype=torch.bool, device=vp.device)
-        hit[order] = out["hit"].reshape(N2, c).T
+        hit[order] = occluded.reshape(N2, c).T
         vis = (~hit).float().reshape(c, oct_res, s, oct_res, s)
         tables.append(vis.mean(dim=(2, 4)).reshape(c, oct_res * oct_res).half())
     return BakedVisibility(table=torch.cat(tables), oct_res=oct_res)

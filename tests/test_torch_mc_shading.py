@@ -174,9 +174,8 @@ def rig(scene):
 
     tri_data = tbvh._plane_tri_data(tb)
 
-    def ttrace(o, d):
-        out = tbvh.cast_rays_chunked(tb, o, d, tri_data=tri_data)
-        return None, None, out["t"][:, None], out["hit"]
+    def ttrace(o, d):  # the port's tracer contract: the hit mask alone
+        return tbvh.occluded_chunked(tb, o, d, tri_data=tri_data)
 
     return dict(jmat=jmat, tmat=tmat, jb=jb, tb=tb, pix=pix, jtrace=jtrace, ttrace=ttrace)
 

@@ -479,5 +479,8 @@ def test_walk_exact_on_the_uv_plane(cuda):
     b, o, d = _uv_plane(256)
     b = tbvh.FlatBVH(*(x.to(cuda) for x in b))
     got = _assert_walk_exact(b, o.to(cuda), d.to(cuda))
-    assert bool((got["t"][got["hit"]] == 1.0).all())
+    # Moller-Trumbore's t = e2.q / det rounds to 1 or to 1 - 2^-24 here (the
+    # plain walk's too: 877 of the hits at 256^2), not to exactly 1 as
+    # kernel B's plane equations do
+    assert bool(((got["t"][got["hit"]] - 1.0).abs() <= 2.0 ** -24).all())
     assert 0.3 < float(got["hit"].float().mean()) < 0.9
