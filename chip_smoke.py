@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything, fourteen to seventeen minutes
+    python3 chip_smoke.py                 # everything, thirteen to sixteen minutes
     python3 chip_smoke.py --kernels-only  # build and check the kernels only
 
 It needs a CUDA card (it exits non-zero without one) and the repository
@@ -15,7 +15,8 @@ which fails the run on any error:
 3. Kernel A (flash-attention forward) against ``attention_plain`` at every
    attention shape of the SD2.1 UNet and ControlNet (B = 3 CFG replicas,
    bf16; then B = 2 and B = 4, the batches of the SDS guidance without and
-   with Perp-Neg; then the volume path's shapes, main path 7): max and mean
+   with Perp-Neg; then the volume path's shapes, main path 7; main path
+   14's cross-attentions to 8 tokens at B = 1): max and mean
    error of O, max error of the log-sum-exp, the
    kernel's time (CUDA events over many launches; device time from a
    CUDA-graph replay of 20 launches; host microseconds per launch), the
@@ -238,7 +239,7 @@ which fails the run on any error:
    width, random weights in bf16, 3 steps, 1 test view: Zero123
    (``configs/zero123.yaml``, accumulate mode, the depth and normal side
    files on, renders cut from 128^2, which runs out of memory, to
-   ``SINGLE_IMAGE_RES`` = 64^2), its simple
+   ``SINGLE_IMAGE_RES`` = 48^2), its simple
    system, image-conditioned DreamFusion (the SD2.1 guidance, 64^2),
    Zero123's refinement (DMTet 128, the rasterizer, 512^2), Magic123's
    volume stage (SD2.1 and Zero123 on one view, 64^2) and its refinement
@@ -326,7 +327,26 @@ which fails the run on any error:
    The same run goes on the CPU at tiny size, the export at 64^2, with ``drive_big_mesh(work, device="cpu", size="tiny")`` once
    ``ops.bvh.DENSE_CAST_MAX_TRIS`` is set below the tiny torus's 576
    triangles.
-19. A ``{"kernels": [...]}`` line, the card's line, and last
+19. Main path 14: the reference-parity probe renderers and the evidence
+   tools (``drive_evidence``, ``phase_evidence``), under
+   ``outputs/chip_smoke_evidence/``, on the torus of main path 3 written as
+   an OBJ: ``render_probes_for_view_exact`` (every sample direction traced
+   through the renderer's ``occlusion``, kernel B) and
+   ``render_probes_for_view_mc`` on a 512^2 view, 2 environments, 200
+   diffuse and 128 specular samples; the exact stack bit for bit across two
+   calls, its rays and CUDA-event ms, the exact-against-MC difference;
+   then ``tools/cycles_parity_torch.py`` (512^2, 2 views, 2 environments,
+   256 samples, the SD2.1 ControlNet in bf16 at seeds 0, 1 and 2: its
+   residual table and response delta, kernel A exactly 14 launches a
+   response), ``tools/quantify_fastpath_torch.py`` at its defaults on
+   ``torus`` and ``slabs`` (every value finite, the cosines in [-1, 1]) and
+   ``tools/e2e_evidence_torch.py`` at its defaults (``launch_torch.py
+   --train`` in a subprocess at 512^2, 8 views, 30 steps: the row's
+   phases, fingerprint and export files); last kernel B's hit mask bit for
+   bit the plain caster's on 65,536 of the exact renderer's shadow rays.
+   Each part's seconds are printed. The same path goes on the CPU at tiny
+   size with ``drive_evidence(work, device="cpu", size="tiny")``.
+20. A ``{"kernels": [...]}`` line, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer logs go to ``outputs/chip_smoke/`` (``--out``). fp32 comparisons run with
@@ -1225,8 +1245,10 @@ def phase_launch(out_dir: str, clock: float) -> dict:
 
     with open(os.path.join(trial, "logs", "metrics.csv")) as f:
         losses = [float(r["loss"]) for r in csv.DictReader(f)]
-    if len(losses) != 1 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"logged losses {losses}")
+    every = res["cfg"].trainer.log_every_n_steps
+    logged = sum(1 for i in range(1, steps + 1) if i % every == 0 or i == steps)
+    if len(losses) != logged or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"logged losses {losses} (expected {logged} rows)")
     if not all(math.isfinite(x) for x in system.step_losses):
         raise AssertionError(f"losses {system.step_losses}")
     ref = system.geometry.init(torch.Generator(device="cuda").manual_seed(res["cfg"].seed))
@@ -3276,15 +3298,17 @@ def phase_volume_rest() -> dict:
 
 # Main path 10, the single-image family and DeepFloyd IF. The input image is
 # a render of the torus of main path 3, turned to face the reference camera
-# and scaled to its view. Zero123's volume runs render at SINGLE_IMAGE_RES,
-# the largest side that fits the card (the reference view and the random
-# view in one render, 512 samples, 8 hash-grid queries a sample with the
-# normal perturbation: configs/zero123.yaml's 128^2, 134M queries, runs out
-# of memory, 64^2 peaks at 75.3 GB; PERF.md section 5); the prompted SD
+# and scaled to its view. Zero123's volume runs render at SINGLE_IMAGE_RES
+# (the reference view and the random view in one render, 512 samples, 8
+# hash-grid queries a sample with the normal perturbation:
+# configs/zero123.yaml's 128^2, 134M queries, runs out of memory; 64^2 peaks
+# at 75.3 GB of the card's 79.2 GiB, and ran out of memory once when the
+# allocator's cache held 10 GiB in blocks too small to reuse; 48^2 leaves
+# room for that; PERF.md section 5); the prompted SD
 # guidance encodes the render at its own size, so those runs render at 64^2
 # (latents that divide by 8) without the normal perturbation; the refinement
 # runs at 512^2 (DMTet resolution 128).
-SINGLE_IMAGE_RES = 64
+SINGLE_IMAGE_RES = 48
 SINGLE_IMAGE_SD_RES = 64
 SINGLE_IMAGE_REFINE_RES = 512
 SINGLE_IMAGE_INPUT_RES = 512
@@ -5045,6 +5069,289 @@ def phase_big_mesh() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# main path 14: the reference-parity probe renderers and the evidence tools
+# ---------------------------------------------------------------------------
+
+# the torus of main path 3 (36,864 triangles) at SD2.1 width; each size's
+# renders, sample counts, rigs and runs (``drive_evidence``)
+EVIDENCE = {
+    "sd21": {"torus": (192, 96), "res": 512, "envs": 2, "samples": (200, 128),
+             "cycles": ["--views", "2", "--envs", "2", "--res", "512", "--cond-res", "512",
+                        "--mc-samples", "256"],
+             "quantify": ["--meshes", "torus", "slabs"],
+             "e2e": []},
+    "tiny": {"torus": (24, 12), "res": 32, "envs": 2, "samples": (16, 16),
+             "cycles": ["--views", "2", "--envs", "2", "--res", "32", "--cond-res", "32",
+                        "--mc-samples", "16"],
+             "quantify": ["--meshes", "torus", "slabs", "--res", "16", "--mc-samples", "16",
+                          "--oct", "8"],
+             "e2e": ["--config", "configs/dreammat_tiny.yaml", "--res", "32", "--views", "2",
+                     "--steps", "2", "system.exporter.texture_size=64"]},
+}
+EVIDENCE_CHECK_RAYS = 65536
+# (N, M, H) of the SD2.1 ControlNet's cross-attentions to the 8 context tokens of
+# cycles_parity_torch's response delta at 64^2 latents (the kernel phase's check)
+EVIDENCE_ATTN_SHAPES = [(4096, 8, 5), (1024, 8, 10), (256, 8, 20), (64, 8, 20)]
+# seconds allowed to the e2e run (about a minute on the card): a hang fails
+# the path with the tool's failure row instead of the whole smoke's limit
+EVIDENCE_E2E_TIMEOUT = 600
+# the e2e run as the smoke drives it: random weights, procedural skies, no caches
+EVIDENCE_E2E_OVERRIDES = ["system.prompt_processor.use_cache=false",
+                          "system.guidance.cache_dir=null",
+                          "system.guidance.controlnet_path=null",
+                          "system.material.environment_texture=/nonexistent"]
+
+
+def evidence_rig(obj: str, size: str, device: str):
+    """Geometry, material (the DreamMat config's sample counts at SD2.1
+    width, prefiltered tables, procedural skies) and renderer (baked
+    visibility; shadow rays through ``occlusion``) on the torus file."""
+    import dreammat_tpu_torch
+    import dreammat_tpu_torch.models  # noqa: F401 (registry)
+
+    cfg = EVIDENCE[size]
+    find = dreammat_tpu_torch.find
+    geo = find("dreammat-mesh")({"shape_init": f"mesh:{obj}", "shape_init_params": 1.0},
+                                device=device)
+    dn, sn = cfg["samples"]
+    hw = (256, 512) if size == "sd21" else (16, 32)
+    mat = find("dreammat-material")({
+        "environment_texture": "/nonexistent", "environment_scale": 2.0,
+        "n_environments": cfg["envs"], "env_height": hw[0], "env_width": hw[1],
+        "diffuse_sample_num": dn, "specular_sample_num": sn, "use_prefiltered": True},
+        device=device)
+    ren = find("raytracing-renderer")({}, geo, mat, None, device=device)
+    return geo, mat, ren
+
+
+def drive_evidence(work: str, device: str = "cuda", size: str = "sd21") -> dict:
+    """Main path 14: the reference-parity probe renderers and the evidence
+    tools on the torus of main path 3, written as an OBJ under ``work``.
+    ``render_probes_for_view_exact`` and ``render_probes_for_view_mc`` on
+    view 0 of the fixed rig (``EVIDENCE``: 512^2, 2 environments, 200
+    diffuse and 128 specular samples at SD2.1 width); the exact renderer
+    twice, equal bit for bit; the stacks finite, the background black, the
+    MC tables finite. Then ``cycles_parity_torch`` (the fast-path stack
+    against the exact one through the PNG cache, the SD2.1 ControlNet's
+    response at seeds 0, 1 and 2), ``quantify_fastpath_torch`` at its
+    defaults on ``torus`` and ``slabs``, and ``e2e_evidence_torch`` at its
+    defaults (512^2, 8 views, 30 steps; a subprocess) on the OBJ, its row's
+    phases, fingerprint and export files checked. Kernel launches are
+    counted from zero around the tools' runs in this process (kernel A in
+    the ControlNet: ``CONTROLNET_ATTENTIONS`` a response). Returns what was
+    measured and, on the card, the view's G-buffer and renderer (``view``);
+    raises on a failed check."""
+    import shutil
+
+    from dreammat_tpu_torch.data import prerender as pre
+    from dreammat_tpu_torch.data.cameras import camera_rays_and_matrices, make_fixed_cameras
+    from dreammat_tpu_torch.models.mesh import torus_arrays, write_obj
+    from dreammat_tpu_torch.ops import attention as attn
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import cycles_parity_torch
+    import e2e_evidence_torch
+    import quantify_fastpath_torch
+
+    cfg = EVIDENCE[size]
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shutil.rmtree(work, ignore_errors=True)
+    v, f = torus_arrays(0.7, 0.28, *cfg["torus"])
+    obj = write_obj(os.path.join(work, "torus.obj"), v, f)
+    seconds, res = {}, {"triangles": int(f.shape[0])}
+
+    def reset():
+        for fn in (attn.flash_attention_fwd, bvh_lib.cast_rays_dense, bvh_lib.cast_rays_bvh):
+            fn.launches = 0
+
+    def counts():
+        return {"flash_attn_fwd": attn.flash_attention_fwd.launches,
+                "ray_cast": bvh_lib.cast_rays_dense.launches,
+                "bvh_traverse": bvh_lib.cast_rays_bvh.launches}
+
+    # the probe renderers on one view
+    t0 = time.time()
+    geo, mat, ren = evidence_rig(obj, size, device)
+    R = cfg["res"]
+    cd = camera_rays_and_matrices(make_fixed_cameras(1, seed=0), 0, R, R, device=device)
+    gb = ren.build_gbuffer(cd["rays_o"], cd["rays_d"], cd["w2c"])
+    sync()
+    seconds["rig"] = time.time() - t0
+    E = cfg["envs"]
+    reset()
+    t0 = time.time()
+    ex = pre.render_probes_for_view_exact(ren, mat, gb, E)
+    sync()
+    seconds["exact"] = time.time() - t0
+    res["exact_launches"] = counts()
+    ex2 = pre.render_probes_for_view_exact(ren, mat, gb, E)
+    if not torch.equal(ex, ex2):
+        raise AssertionError(f"the exact renderer differs between two calls: max "
+                             f"{(ex - ex2).abs().max().item():.3e}")
+    P = gb.fg_pos.shape[0]
+    res["pixels"], res["foreground"] = P, int(gb.fg_valid.sum())
+    res["directions"] = mat.diffuse_dir_samples.shape[0] + 3 * mat.specular_dir_samples.shape[0]
+    res["rays_traced"] = P * res["directions"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        res["exact_ms"] = cuda_ms(lambda: pre.render_probes_for_view_exact(ren, mat, gb, E), 1,
+                                  warmup=0)
+        res["exact_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    mc, tabs = pre.render_probes_for_view_mc(ren, mat, gb, E)
+    sync()
+    seconds["mc"] = time.time() - t0
+    fg = gb.mask
+    for name, x in (("exact", ex), ("mc", mc), ("mc tables", tabs)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name} probes hold non-finite values")
+    if ex.shape != (E, R, R, 18) or mc.shape != ex.shape or \
+            tabs.shape != (E, P, 1 + len(pre.TABLE_ALPHAS), 3):
+        raise AssertionError(f"shapes {tuple(ex.shape)}, {tuple(mc.shape)}, {tuple(tabs.shape)}")
+    if ex[:, ~fg].abs().max().item() != 0.0 or mc[:, ~fg].abs().max().item() != 0.0:
+        raise AssertionError("a background pixel of the probes is not black")
+    d = (ex - mc).abs()[:, fg]
+    res["exact_vs_mc"] = {"mean_abs": d.mean().item(), "max_abs": d.max().item(),
+                          "mean_exact": ex[:, fg].mean().item()}
+    log(f"evidence: exact probes of a {R}^2 view ({res['foreground']} of {P} pixels x "
+        f"{res['directions']} directions = {res['rays_traced']} rays, {E} environments) in "
+        f"{seconds['exact']:.3f}s"
+        + (f", {res['exact_ms']:.2f} ms by CUDA events, peak {res['exact_peak_gb']:.2f} GB"
+           if cuda else "")
+        + f"; bit for bit across two calls; launches {res['exact_launches']}; MC probes and "
+        f"tables {seconds['mc']:.3f}s; exact vs MC |d| mean {res['exact_vs_mc']['mean_abs']:.4e}"
+        f" max {res['exact_vs_mc']['max_abs']:.4e} (exact mean {res['exact_vs_mc']['mean_exact']:.4f})")
+    del ex2, mc, tabs, d
+
+    # the three tools in this process, the launch counters zeroed before each
+    t0 = time.time()
+    reset()
+    cyc_args = cycles_parity_torch.parse_args(["--mesh", obj, "--device", device,
+                                               *cfg["cycles"]])
+    row = cycles_parity_torch.measure(cyc_args, 2.0, device)
+    sync()
+    seconds["cycles_parity"] = time.time() - t0
+    res["cycles_launches"] = counts()
+    cn = row["controlnet_delta"]
+    n_resp = len(cn["per_seed"]) * int(cyc_args.views) * int(cyc_args.envs) * 2
+    if cuda and res["cycles_launches"]["flash_attn_fwd"] != n_resp * CONTROLNET_ATTENTIONS:
+        raise AssertionError(f"kernel A launches {res['cycles_launches']['flash_attn_fwd']} in "
+                             f"the ControlNet delta, expected {n_resp} x "
+                             f"{CONTROLNET_ATTENTIONS}")
+    for name, r in row["residuals"].items():
+        if not all(math.isfinite(r[k]) for k in ("mae", "rmse")):
+            raise AssertionError(f"cycles parity residual {name}: {r}")
+    if not (math.isfinite(cn["rel_l2_mean"]) and 0.0 <= cn["rel_l2_mean"] <= cn["rel_l2_max"]):
+        raise AssertionError(f"controlnet delta {cn}")
+    res["cycles_parity"] = row
+    log(f"evidence: cycles_parity_torch {' '.join(cfg['cycles'])} in "
+        f"{seconds['cycles_parity']:.1f}s; launches {res['cycles_launches']} ({n_resp} "
+        f"ControlNet responses)")
+    cycles_parity_torch.print_table(row)
+
+    t0 = time.time()
+    reset()
+    rows = quantify_fastpath_torch.main(["--device", device, *cfg["quantify"]])
+    sync()
+    seconds["quantify_fastpath"] = time.time() - t0
+    res["quantify_launches"] = counts()
+    octs = 3 if size == "sd21" else 1
+    if len(rows) != 2 * 2 * 2 * octs:
+        raise AssertionError(f"quantify_fastpath_torch: {len(rows)} rows")
+    for r in rows:
+        for k, x in r.items():
+            if isinstance(x, float) and not math.isfinite(x):
+                raise AssertionError(f"quantify_fastpath_torch row {r}: {k} is not finite")
+        if not all(-1.0 - 1e-9 <= r[k] <= 1.0 + 1e-9 for k in
+                   ("grad_cos", "grad_cos_floor", "grad_cos_mc", "grad_cos_px")):
+            raise AssertionError(f"quantify_fastpath_torch row {r}: a cosine outside [-1, 1]")
+    res["quantify_fastpath"] = rows
+    log(f"evidence: quantify_fastpath_torch {' '.join(cfg['quantify'])} in "
+        f"{seconds['quantify_fastpath']:.1f}s; launches {res['quantify_launches']}")
+
+    t0 = time.time()
+    del geo, mat
+    if cuda:
+        torch.cuda.empty_cache()
+    out = os.path.join(work, "e2e_torch.json")
+    rc = e2e_evidence_torch.main(["--mesh", obj, "--out", out, "--exp-root-dir", work,
+                                  "--device", device, "--timeout", str(EVIDENCE_E2E_TIMEOUT),
+                                  *cfg["e2e"], *EVIDENCE_E2E_OVERRIDES])
+    seconds["e2e"] = time.time() - t0
+    with open(out) as fh:
+        e2e = json.load(fh)
+    if rc != 0 or "failed" in e2e:
+        raise AssertionError(f"e2e_evidence_torch failed (rc {rc}): {e2e.get('failed')}; "
+                             f"{e2e.get('log_tail', '')[-2000:]}")
+    ph = e2e["phases"]
+    for k in ("prerender_gbuffers_s", "prerender_bakes_s", "prerender_probes_tables_s",
+              "first_step_s", "warm_steps_per_sec", "test_render_s", "export_s"):
+        if ph.get(k) is None:
+            raise AssertionError(f"e2e row: phase {k} missing: {ph}")
+    if ph["static_maps_s"] is not None or ph["steps_logged"] != e2e["steps"]:
+        raise AssertionError(f"e2e row: {ph}")
+    fp = e2e["render_fingerprint"]
+    if len(fp.get("sha256", "")) != 16 or len(fp.get("mean_rgb", [])) != 3:
+        raise AssertionError(f"e2e row: fingerprint {fp}")
+    want = {"model.obj", "model.mtl", "texture_kd.jpg", "texture_metallic.jpg",
+            "texture_roughness.jpg"}
+    if not want <= set(e2e["export_files"]):
+        raise AssertionError(f"e2e row: export files {e2e['export_files']}")
+    res["e2e"] = e2e
+    log(f"evidence: e2e_evidence_torch ({e2e['resolution']}^2, {e2e['views']} views, "
+        f"{e2e['steps']} steps) in {seconds['e2e']:.1f}s: wall {e2e['total_wall_s']}s, phases "
+        f"{json.dumps(ph)}, fingerprint {fp['mean_rgb']} {fp['sha256']}")
+    res["seconds"] = seconds
+    log(f"evidence: seconds {json.dumps({k: round(x, 2) for k, x in seconds.items()})}")
+    if cuda:
+        res["view"] = (ren, gb)
+    else:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def phase_evidence() -> dict:
+    """Main path 14 on the card (``drive_evidence`` at SD2.1 width), then
+    kernel B against the plain caster, bit for bit, on ``EVIDENCE_CHECK_RAYS``
+    of the exact renderer's shadow rays of its view (kernel B on all of
+    them, as the renderer casts them, also timed in one launch; the plain
+    caster on an even stride)."""
+    import shutil
+
+    from dreammat_tpu_torch.data import prerender as pre
+    from dreammat_tpu_torch.ops import bvh as bvh_lib
+
+    work = os.path.join("outputs", "chip_smoke_evidence")
+    res = drive_evidence(work)
+    ren, gb = res.pop("view")
+    t0 = time.time()
+    pos, nrm, vdr, _ = pre._probe_inputs(gb)
+    o, d = pre.exact_probe_rays(ren.material, pos, nrm, vdr)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    hit = ren.occlusion(o, d)
+    cast_ms = cuda_ms(lambda: ren.occlusion(o, d), 3)
+    pick = torch.arange(EVIDENCE_CHECK_RAYS, device="cuda") * (o.shape[0] // EVIDENCE_CHECK_RAYS)
+    ref = bvh_lib.cast_rays_plain(ren.bvh, o[pick].contiguous(), d[pick].contiguous(),
+                                  chunk=2048, tri_data=ren.tri_data)["hit"]
+    flips = int((hit[pick] != ref).sum())
+    if flips:
+        raise AssertionError(f"evidence: kernel B's hit mask differs from the plain caster's on "
+                             f"{flips} of {EVIDENCE_CHECK_RAYS} shadow rays")
+    res["shadow_check"] = {"rays": int(o.shape[0]), "checked": EVIDENCE_CHECK_RAYS, "flips": 0,
+                           "hit_frac": float(hit.float().mean()), "cast_ms": cast_ms}
+    res["seconds"]["check"] = time.time() - t0
+    log(f"evidence: kernel B's hit mask bit for bit the plain caster's on {EVIDENCE_CHECK_RAYS} "
+        f"of the view's {o.shape[0]} shadow rays (hit fraction {res['shadow_check']['hit_frac']:.4f}"
+        f"); kernel B on all of them in one launch {cast_ms:.2f} ms (CUDA events)")
+    del ren, gb, pos, nrm, vdr, o, d, hit
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5110,6 +5417,10 @@ def main() -> int:
     bwd_vol["zero123_b1"] = timed("attention_zero123", phase_attention_bwd, gen, 1,
                                   [(1, N, M, H) for N, M, H in ZERO123_ATTN_SHAPES],
                                   autograd_check=False)
+    # main path 14's ControlNet delta: B = 1, 64^2 latents, a context of 8
+    # tokens (its self-attention shapes are latent64_b1's)
+    attn_vol["evidence_b1"] = timed("attention_evidence", phase_attention, gen, 1,
+                                    EVIDENCE_ATTN_SHAPES)
     vol_rows = volume_kernel_rows(attn_vol, bwd_vol)
     cast_res = timed("ray_cast", phase_ray_cast)
     counts = {"flash_attn_fwd": None, "ray_cast": None}
@@ -5123,7 +5434,7 @@ def main() -> int:
                 "ray_cast": None}
     r_counts = dict(d_counts)
     main_res = cn_res = launch_res = user_res = opt_res = tex_res = vol_res = dmtet_res = None
-    rest_res = single_res = edit_res = par_res = big_res = None
+    rest_res = single_res = edit_res = par_res = big_res = evid_res = None
     s_counts = dict(d_counts)
     e_counts = dict(d_counts)
     if not args.kernels_only:
@@ -5152,6 +5463,7 @@ def main() -> int:
         e_counts = edit_res["counts"]
         par_res = timed("parallel", phase_parallel, cn_res["losses"], args.seed)
         big_res = timed("big_mesh", phase_big_mesh)
+        evid_res = timed("evidence", phase_evidence)
 
     a = max(attn_res["rows"], key=lambda r: r["N"] * r["M"])
     b = max(cast_res["rows"], key=lambda r: r["R"])
@@ -5201,7 +5513,9 @@ def main() -> int:
                               "edit_by_run_and_batch": edit_res and {
                                   **{run: r["flash_attn_fwd_by_batch"]
                                      for run, r in edit_res["runs"].items()},
-                                  "ip2p_sds": edit_res["ip2p_sds"]["flash_attn_fwd_by_batch"]}},
+                                  "ip2p_sds": edit_res["ip2p_sds"]["flash_attn_fwd_by_batch"]},
+                              "evidence_controlnet_delta": evid_res and evid_res[
+                                  "cycles_launches"]["flash_attn_fwd"]},
          "volume_and_dmtet_shapes": vol_rows["flash_attn_fwd"],
          "perp_neg_b5": user_res and {k: user_res["attention_b5"][k] for k in (
              "B", "N", "M", "H", "max_err", "ms", "graph_ms", "plain_ms", "lib_ms",
@@ -5288,7 +5602,10 @@ def main() -> int:
                                   run: r["launches"]["ray_cast"]
                                   for run, r in single_res["runs"].items()},
                               "edit_capture": e_counts["ray_cast"],
-                              "big_mesh": big_res and big_res["dense"]},
+                              "big_mesh": big_res and big_res["dense"],
+                              "evidence_by_stage": evid_res and {
+                                  k: evid_res[f"{k}_launches"]["ray_cast"]
+                                  for k in ("exact", "cycles", "quantify")}},
          "traffic": [{k: r[k] for k in ("label", "R", "T", "checked", "pairs", "ms", "bound_ms",
                                         "by", "bound_all_pairs_ms", "flips", "face_diff",
                                         "pairs_morton", "bound_tested_ms", "bound_morton_ms")
@@ -5365,7 +5682,7 @@ def main() -> int:
                    "attention_bwd": bwd_res, "ray_cast": cast_res, "sass": sass,
                    "kernels": kernels, "main": main_res, "controlnet": cn_res,
                    "launch": launch_res, "user_files": user_res, "options": opt_res,
-                   "big_mesh": big_res,
+                   "big_mesh": big_res, "evidence": evid_res,
                    "phase_seconds": phase_s, "card": card}, f, indent=1,
                   default=str)
     log(f"phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

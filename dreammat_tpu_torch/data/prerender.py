@@ -7,8 +7,14 @@ per-vertex GGX-prefiltered table, the six light-probe images
 (metallic {0,1} x roughness {0, 0.5, 1}, white base color) under every
 environment, and the depth and normal condition maps, all resized to the
 condition resolution (``probe_view_for_camera``, which also serves one
-sampled camera of the random-camera mode). ``vertex_table_for_camera``
-makes the table of any camera (the eval views). The fast-path gate's two
+sampled camera of the random-camera mode; ``render_probes_for_view`` is
+the same pass under the JAX function's signature). ``vertex_table_for_camera``
+makes the table of any camera (the eval views). The reference-parity probe
+renderers, the ground truth of the evidence tools: ``render_probes_for_view_exact``
+(every sample direction traced through ``renderer.occlusion``, no baked
+table) and ``render_probes_for_view_mc`` (the same estimators with the
+shadowed-radiance cache in place of the trace, and the per-pixel split-sum
+tables). The fast-path gate's two
 measures compare the tables with the exact MC estimator (shadow rays
 through the renderer's ``occlusion``): ``fastpath_residual`` (relative colour RMSE of one view) and
 ``fastpath_grad_cos`` (cosine of the material gradients on a pixel subset;
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import math
 import os
 import threading
 import time
@@ -46,8 +53,10 @@ from dreammat_tpu_torch.parallel import distributed as dist
 from dreammat_tpu_torch.utils import ops as uops
 
 PROBE_MR = [(0.0, 0.0), (0.0, 0.5), (0.0, 1.0), (1.0, 0.0), (1.0, 0.5), (1.0, 1.0)]
+SPEC_ROUGHNESS = [0.0, 0.5, 1.0]  # linear roughness of the exact renderer's three GGX sets
 TABLE_ALPHAS = (1e-3, 0.08, 0.25, 0.5, 1.0)
 _PROBE_SET_IDX = {0.0: 0, 0.5: 2, 1.0: 4}
+_SPEC_ALPHAS = [TABLE_ALPHAS[_PROBE_SET_IDX[r]] for r in SPEC_ROUGHNESS]
 
 
 @dataclass
@@ -71,15 +80,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def mesh_bakes(renderer, material, n_envs: int):
-    """(lvis, e_d_vertex, fg_lut, oct_res): the view-independent bakes."""
+def _shadowed_radiance(renderer, material, n_envs: int):
+    """(baked visibility, shadowed-radiance cache lvis [V, O2, E*3]): the
+    material's baked visibility (baked now when it has none) times its
+    first ``n_envs`` environments."""
     from dreammat_tpu_torch.ops import visibility as vis_lib
 
     baked = material.baked_visibility
     if baked is None:
         baked = vis_lib.bake_vertex_visibility(renderer.bvh, renderer.mesh.v_pos,
                                                renderer.mesh.v_nrm)
-    lvis = vis_lib.bake_shadowed_radiance(baked, material.envs[:n_envs])
+    return baked, vis_lib.bake_shadowed_radiance(baked, material.envs[:n_envs])
+
+
+def mesh_bakes(renderer, material, n_envs: int):
+    """(lvis, e_d_vertex, fg_lut, oct_res): the view-independent bakes."""
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    baked, lvis = _shadowed_radiance(renderer, material, n_envs)
     e_d_vertex = vis_lib.bake_vertex_irradiance_conv(lvis, renderer.mesh.v_nrm, baked.oct_res)
     fg_lut = material.fg_lut
     if fg_lut is None:
@@ -95,7 +113,6 @@ def _probe_view_body(v_pos, v_nrm, lvis, e_d_vertex, fg_lut, cam_pos, gb,
     probes from the FG LUT: probe(m, r) = (1-m) E_d + (F0(m) A + B) S(r)."""
     from dreammat_tpu_torch.ops import visibility as vis_lib
 
-    H, W = gb.mask.shape
     K = len(TABLE_ALPHAS)
     viewdir_v = uops.safe_normalize(cam_pos[None, :] - v_pos)
     refl_v = uops.safe_normalize(uops.reflect(viewdir_v, v_nrm))
@@ -118,11 +135,7 @@ def _probe_view_body(v_pos, v_nrm, lvis, e_d_vertex, fg_lut, cam_pos, gb,
         spec = (F0 * fg[..., 0:1] + fg[..., 1:2])[None] * tables[:, :, 1 + li]
         diff = (1.0 - m) * tables[:, :, 0]
         per_probe.append(uops.lin2srgb(torch.nan_to_num(diff + spec)))
-    out = torch.cat(per_probe, dim=-1)                                           # [E,P,18]
-    vals = torch.where(gb.fg_valid[None, :, None], out, torch.zeros_like(out))
-    img = torch.zeros(n_envs, H * W, 18, device=out.device).index_add_(1, gb.fg_idx, vals)
-    img = img * gb.mask.reshape(1, -1, 1).float()
-    return img.reshape(n_envs, H, W, 18), tab_v.permute(2, 0, 1, 3)
+    return _scatter_probes(gb, torch.cat(per_probe, dim=-1)), tab_v.permute(2, 0, 1, 3)
 
 
 def probe_view_for_camera(renderer, bakes, cam_pos, gb, n_envs: int, cond_height: int,
@@ -137,6 +150,194 @@ def probe_view_for_camera(renderer, bakes, cam_pos, gb, n_envs: int, cond_height
     return (resize_hw(img, cond_height, cond_width).half(), tab.half(),
             resize_hw(gb.cn_depth.float(), cond_height, cond_width).half(),
             resize_hw(gb.cn_normal.float(), cond_height, cond_width).half())
+
+
+def render_probes_for_view(renderer, material, gb, n_envs: int, cam_pos, lvis=None,
+                           e_d_vertex=None, oct_res: int = 16, fg_lut=None):
+    """The fast probe and table pass of one G-buffer (``_probe_view_body``):
+    (probes [E,H,W,18] sRGB, vertex table [E,V,1+K,3]), at the G-buffer's
+    own resolution. ``lvis``, ``e_d_vertex``, ``oct_res`` and ``fg_lut`` are
+    the four of ``mesh_bakes``, given together; without ``lvis`` they are
+    made here."""
+    mesh = renderer.mesh
+    if lvis is None:
+        lvis, e_d_vertex, fg_lut, oct_res = mesh_bakes(renderer, material, n_envs)
+    cam_pos = torch.as_tensor(cam_pos, dtype=torch.float32, device=mesh.v_pos.device)
+    return _probe_view_body(mesh.v_pos, mesh.v_nrm, lvis, e_d_vertex, fg_lut,
+                            cam_pos.reshape(3), gb, oct_res, n_envs)
+
+
+def _probe_inputs(gb):
+    """The G-buffer's points, normals, view directions and valid mask with
+    the padding lanes' zero normals and view directions replaced by +z
+    (zero vectors give NaN sample frames and half-vectors)."""
+    up = torch.tensor([0.0, 0.0, 1.0], device=gb.fg_pos.device)
+    unit = lambda x: torch.where(torch.linalg.norm(x, dim=-1, keepdim=True) < 0.5, up, x.float())
+    return gb.fg_pos.float(), unit(gb.fg_normal), unit(gb.fg_viewdir), gb.fg_valid
+
+
+def _scatter_probes(gb, out: torch.Tensor) -> torch.Tensor:
+    """Per-pixel probes [E,P,18] -> image [E,H,W,18]: valid pixels scattered
+    through ``fg_idx``, the rest black."""
+    H, W = gb.mask.shape
+    vals = torch.where(gb.fg_valid[None, :, None], out, torch.zeros_like(out))
+    img = torch.zeros(out.shape[0], H * W, 18, device=out.device).index_add_(1, gb.fg_idx, vals)
+    img = img * gb.mask.reshape(1, -1, 1).float()
+    return img.reshape(out.shape[0], H, W, 18)
+
+
+def _probe_level_weights(normal, viewdir, dirs, alpha: float):
+    """Per-sample GGX weights of one specular set [pc,sn,3] at GGX alpha:
+    w = D G / (4 NoV pdf) (= G VoH / (NoV NoH)) and the Fresnel terms of
+    F0 = 0.04 and 1, each [pc,sn,1]."""
+    from dreammat_tpu_torch.models.material import (
+        distribution_ggx, fresnel_schlick, geometry_schlick)
+
+    NoV = uops.saturate_dot(normal, viewdir)[:, None]
+    Hv = uops.safe_normalize(viewdir[:, None] + dirs)
+    NoH = uops.saturate_dot(normal[:, None], Hv)
+    VoH = uops.saturate_dot(viewdir[:, None], Hv)
+    NoL = uops.saturate_dot(normal[:, None], dirs)
+    D = distribution_ggx(NoH, alpha)
+    G = geometry_schlick(NoV, NoL, alpha)
+    pdf = D * NoH / (4.0 * VoH + 1e-5)
+    w = D * G / (4.0 * NoV * pdf + 1e-5)
+    return w, fresnel_schlick(0.04, VoH), fresnel_schlick(1.0, VoH)
+
+
+def _probe_colors(E_d, lights_spec, level_data, set_of_roughness):
+    """The six probes [pc,18] (sRGB) of one environment: diffuse (1-m) E_d
+    plus the mean of Fr(m) L w over the specular set of the probe's
+    roughness (``lights_spec[i]`` [pc,sn,3] of set i)."""
+    per_probe = []
+    for (m, r) in PROBE_MR:
+        li = set_of_roughness[r]
+        w, Fr04, Fr1 = level_data[li]
+        Fr = Fr1 if m == 1.0 else Fr04
+        spec = torch.mean(Fr * lights_spec[li] * w, dim=1)
+        per_probe.append(uops.lin2srgb(torch.nan_to_num((1.0 - m) * E_d + spec)))
+    return torch.cat(per_probe, dim=-1)
+
+
+def exact_probe_rays(material, pos, normal, viewdir):
+    """The exact probe renderer's shadow rays of pixels [pc]: origins and
+    directions [pc, S, 3], S = dn + 3 sn: the material's diffuse set, then
+    its specular set at each of the three probe alphas, each origin the
+    point pushed 1e-5 along its direction."""
+    refl = uops.reflect(viewdir, normal)
+    pc = pos.shape[0]
+    dirs = torch.cat([material.sample_diffuse_directions(normal)] + [
+        material.sample_specular_directions(refl, torch.full((pc, 1), a, device=pos.device))
+        for a in _SPEC_ALPHAS], dim=1)
+    return pos[:, None] + dirs * 1e-5, dirs
+
+
+# pixels a chunk of the exact probe renderer. A chunk's peak is about
+# chunk x S x 130 bytes for S = dn + 3 sn sample directions (the directions,
+# the shadow rays' origins, the caster's outputs and one environment's
+# radiance and weighted products at a time): 32,768 pixels x 584 directions
+# (the DreamMat config's 200 + 3 x 128) is about 2.5 GB, x 1,024 (256 MC
+# samples) about 4.4 GB, a small share of an 80 GB card. One 512^2 view of
+# a mesh filling a quarter of the frame is two chunks.
+EXACT_CHUNK = 1 << 15
+
+
+@torch.no_grad()
+def render_probes_for_view_exact(renderer, material, gb, n_envs: int,
+                                 chunk: int = EXACT_CHUNK) -> torch.Tensor:
+    """Reference-parity probe stack [n_envs, H, W, 18] (sRGB) with exact
+    per-ray visibility: per pixel the material's fixed fibonacci diffuse
+    set and three GGX sets at alpha = probe roughness^2 (``TABLE_ALPHAS``
+    0, 2 and 4), every direction traced once through ``renderer.occlusion``
+    (kernel B at or below ``DENSE_CAST_MAX_TRIS`` triangles, kernel E's
+    any-hit entry above) from the point pushed 1e-5 along it, its hit mask
+    reused by every environment. Padding lanes are dark. Deterministic:
+    the sets are fixed (no random azimuth outside training), so the JAX
+    function's ``rng`` has no counterpart."""
+    n_dirs_d = material.diffuse_dir_samples.shape[0]
+    sn = material.specular_dir_samples.shape[0]
+    envs = material.envs[:n_envs]
+    set_of_roughness = {r: i for i, r in enumerate(SPEC_ROUGHNESS)}
+    pos, nrm, vdr, valid = _probe_inputs(gb)
+    outs = []
+    for s in range(0, pos.shape[0], chunk):
+        p, n, v, ok = pos[s:s + chunk], nrm[s:s + chunk], vdr[s:s + chunk], valid[s:s + chunk]
+        pc = p.shape[0]
+        o, all_dirs = exact_probe_rays(material, p, n, v)
+        hit = renderer.occlusion(o.reshape(-1, 3), all_dirs.reshape(-1, 3))
+        occluded = (hit.reshape(pc, -1) | ~ok[:, None])[..., None]
+        level_data = [_probe_level_weights(n, v, all_dirs[:, n_dirs_d + i * sn:
+                                                         n_dirs_d + (i + 1) * sn], a)
+                      for i, a in enumerate(_SPEC_ALPHAS)]
+        imgs = []
+        for env in envs:
+            lights = torch.where(occluded, 0.0, envmap_lib.sample_equirect_nearest(env, all_dirs))
+            E_d = lights[:, :n_dirs_d].mean(1)
+            spec = [lights[:, n_dirs_d + i * sn:n_dirs_d + (i + 1) * sn] for i in range(3)]
+            imgs.append(_probe_colors(E_d, spec, level_data, set_of_roughness))
+        outs.append(torch.stack(imgs))                                      # [E,pc,18]
+    return _scatter_probes(gb, torch.cat(outs, dim=1))
+
+
+MC_CHUNK = 4096  # pixels a chunk of the MC probe renderer, the JAX function's default
+
+
+@torch.no_grad()
+def render_probes_for_view_mc(renderer, material, gb, n_envs: int):
+    """The probe stack [n_envs, H, W, 18] and the per-pixel split-sum light
+    tables [n_envs, P, 1+K, 3] (slot 0 the diffuse irradiance E_d, slots
+    1..K the GGX-prefiltered radiance at ``TABLE_ALPHAS``) of one G-buffer
+    by the reference's estimators, with visibility from the fused
+    shadowed-radiance cache ``lvis`` instead of a trace: per pixel K GGX
+    sets from the material's fibonacci specular set, each read from
+    ``lvis`` (three vertex rows, bilinear), and E_d the barycentric mix of
+    the per-vertex ``bake_vertex_irradiance``; ``MC_CHUNK`` pixels at a
+    time. The sets are fixed, so the JAX function's ``rng`` has no
+    counterpart."""
+    from dreammat_tpu_torch.ops import visibility as vis_lib
+
+    K = len(TABLE_ALPHAS)
+    baked, lvis = _shadowed_radiance(renderer, material, n_envs)
+    e_d_vertex = vis_lib.bake_vertex_irradiance(baked, lvis, renderer.mesh.v_nrm,
+                                                material.diffuse_dir_samples)
+    spec_samples = material.specular_dir_samples
+    sn = spec_samples.shape[0]
+    phi = (2.0 * math.pi) * spec_samples[:, 0][None, :, None]
+    el = spec_samples[:, 1][None, :, None]
+    set_of_roughness = dict(_PROBE_SET_IDX)
+    pos, nrm, vdr, _ = _probe_inputs(gb)
+    tri, bary = gb.fg_tri, gb.fg_bary
+    outs, tabs = [], []
+    for s in range(0, pos.shape[0], MC_CHUNK):
+        n, v = nrm[s:s + MC_CHUNK], vdr[s:s + MC_CHUNK]
+        tr, ba = tri[s:s + MC_CHUNK], bary[s:s + MC_CHUNK]
+        refl = uops.reflect(v, n)
+        xs = uops.get_orthogonal_directions(refl)
+        ys = torch.linalg.cross(refl, xs, dim=-1)
+        sets = []
+        for alpha in TABLE_ALPHAS:
+            cos_t = torch.sqrt(torch.clamp(
+                (1.0 - el + 1e-6) / (1.0 + (alpha ** 2 - 1.0) * el + 1e-6) + 1e-6, 0.0, 1.0))
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t ** 2, 0.0, 1.0) + 1e-6)
+            sets.append(torch.cos(phi) * sin_t * xs[:, None]
+                        + torch.sin(phi) * sin_t * ys[:, None] + cos_t * refl[:, None])
+        level_data = [_probe_level_weights(n, v, d, a) for d, a in zip(sets, TABLE_ALPHAS)]
+        lights_all = vis_lib.lookup_shadowed_radiance_all_envs(
+            lvis, tr, ba, torch.cat(sets, dim=1), baked.oct_res)            # [pc,K*sn,E,3]
+        imgs, tables = [], []
+        for env_id in range(n_envs):
+            lights = lights_all[:, :, env_id]
+            ev = e_d_vertex[env_id].float()
+            E_d = sum(ba[:, k:k + 1] * ev[tr[:, k]] for k in range(3))
+            spec = [lights[:, li * sn:(li + 1) * sn] for li in range(K)]
+            tab = [E_d] + [torch.nan_to_num((spec[li] * level_data[li][0]).sum(1)
+                                            / (level_data[li][0].sum(1) + 1e-6))
+                           for li in range(K)]
+            tables.append(torch.stack(tab, dim=1))                          # [pc,1+K,3]
+            imgs.append(_probe_colors(E_d, spec, level_data, set_of_roughness))
+        outs.append(torch.stack(imgs))
+        tabs.append(torch.stack(tables))
+    return _scatter_probes(gb, torch.cat(outs, dim=1)), torch.cat(tabs, dim=1)
 
 
 def vertex_table_for_camera(renderer, material, data: PrerenderData, cam_pos,

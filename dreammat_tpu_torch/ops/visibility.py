@@ -1,19 +1,25 @@
 """Baked visibility, its lookups, and the octahedral convolution bakes.
 
 Counterpart of ``dreammat_tpu/ops/visibility.py``: the octahedral direction
-mapping and its bilinear footprint, ``bake_vertex_visibility`` (V x O^2 rays,
+mapping, its nearest bin (``dir_to_bin``, y-major) and its bilinear
+footprint, ``bake_vertex_visibility`` (V x O^2 rays,
 their hit mask from ``occluded_chunked``: kernel B on the card, kernel E's
 any-hit entry above 2^22 triangles) and its per-pixel twin
 ``bake_pixel_visibility``, the Monte-Carlo estimators' lookups
 (``lookup_visibility``, barycentric over a triangle's vertex tables, and
 ``lookup_visibility_pixel``), ``self_occlusion_fraction``, the fused env x
-visibility cache ``bake_shadowed_radiance``, and the gather-free quadrature
-bakes ``bake_vertex_irradiance_conv`` and ``bake_vertex_specular_conv`` that
-the prerender builds the light tables from.
+visibility cache ``bake_shadowed_radiance`` and its lookups
+(``lookup_shadowed_radiance_all_envs``, ``lookup_shadowed_radiance``), the
+gather-free quadrature bakes ``bake_vertex_irradiance_conv`` and
+``bake_vertex_specular_conv`` that the prerender builds the light tables
+from, and ``bake_vertex_irradiance``, the cosine-set estimate of the same
+irradiance that the reference-parity MC probe renderer reads.
 
 The JAX package's environment switches of the lookups (``DREAMMAT_VIS_*``,
-A/B knobs of its fidelity tool) are not ported: the lookups always filter
-bilinearly and carry no gradient.
+A/B knobs of its fidelity tool) and its ``filter_mode`` argument are not
+ported: the lookups always filter bilinearly and carry no gradient.
+``dir_to_bin`` and the one-environment ``lookup_shadowed_radiance`` mirror
+the JAX package's functions and have no caller in the port.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from dreammat_tpu_torch.ops import bvh as bvh_lib
+from dreammat_tpu_torch.utils import ops as uops
 
 
 class BakedVisibility(NamedTuple):
@@ -63,6 +70,15 @@ def dir_to_oct_uv(d: torch.Tensor) -> torch.Tensor:
     folded = (1.0 - xy.flip(-1).abs()) * _flip_sign(xy)
     xy = torch.where(n[..., 2:3] < 0, folded, xy)
     return xy * 0.5 + 0.5
+
+
+def dir_to_bin(d: torch.Tensor, oct_res: int) -> torch.Tensor:
+    """The nearest octahedral bin [...] (int64, y-major: y * oct_res + x)
+    of unit dirs [...,3]."""
+    uv = dir_to_oct_uv(d)
+    x = torch.clamp((uv[..., 0] * oct_res).long(), 0, oct_res - 1)
+    y = torch.clamp((uv[..., 1] * oct_res).long(), 0, oct_res - 1)
+    return y * oct_res + x
 
 
 def oct_bilinear_bins_weights(d: torch.Tensor, oct_res: int):
@@ -280,6 +296,30 @@ def bake_shadowed_radiance(baked: BakedVisibility, envs: torch.Tensor,
     return out
 
 
+def lookup_shadowed_radiance_all_envs(lvis: torch.Tensor, tri_verts: torch.Tensor,
+                                      bary: torch.Tensor, directions: torch.Tensor,
+                                      oct_res: int) -> torch.Tensor:
+    """Shadowed incoming radiance of every environment at once, [P,S,E,3]:
+    the barycentric mix (``tri_verts``, ``bary`` [P,3]) of the three vertex
+    rows of ``lvis`` [V, O2, E*3] at each direction [P,S,3], bilinear over
+    the bins."""
+    t = lvis.float()
+    C = t.shape[-1]
+    P, S = directions.shape[:2]
+    bins4, w4 = oct_bilinear_bins_weights(directions, oct_res)
+    bins = bins4.reshape(P, S * 4)
+    out = sum(bary[:, k:k + 1, None] * t[tri_verts[:, k:k + 1], bins] for k in range(3))
+    return (out.reshape(P, S, 4, C) * w4[..., None]).sum(2).reshape(P, S, C // 3, 3)
+
+
+def lookup_shadowed_radiance(lvis: torch.Tensor, tri_verts: torch.Tensor, bary: torch.Tensor,
+                             directions: torch.Tensor, oct_res: int,
+                             env_id: int = 0) -> torch.Tensor:
+    """One environment's shadowed radiance [P,S,3]."""
+    return lookup_shadowed_radiance_all_envs(lvis, tri_verts, bary, directions,
+                                             oct_res)[:, :, env_id]
+
+
 def bake_vertex_irradiance_conv(lvis: torch.Tensor, v_nrm: torch.Tensor,
                                 oct_res: int) -> torch.Tensor:
     """Per-vertex diffuse irradiance / pi, E_d [E, V, 3], as a cosine-kernel
@@ -319,3 +359,35 @@ def bake_vertex_specular_conv(lvis: torch.Tensor, refl: torch.Tensor, alphas, oc
         num = torch.einsum("vko,voc->vkc", w, lvis[s:s + v_chunk].float())
         outs.append(num / (w.sum(-1)[..., None] + 1e-8))
     return torch.cat(outs).reshape(V, K, C // 3, 3)
+
+
+def bake_vertex_irradiance(baked: BakedVisibility, lvis: torch.Tensor, v_nrm: torch.Tensor,
+                           diffuse_samples: torch.Tensor,
+                           v_chunk: int = 1 << 14) -> torch.Tensor:
+    """Per-vertex diffuse irradiance E_d [E, V, 3] as the reference's
+    estimator forms it: the mean over the cosine-weighted set
+    ``diffuse_samples`` [dn, 2] (fibonacci azimuth / 2 pi, elevation term)
+    in each vertex's normal frame of the shadowed radiance ``lvis``, read
+    bilinearly; ``v_chunk`` vertices at a time (their gather is
+    [v_chunk, 4 dn, E*3] fp32)."""
+    az = diffuse_samples[:, 0][None, :, None] * (2.0 * math.pi)
+    el = diffuse_samples[:, 1][None, :, None]
+    el_sqrt = torch.sqrt(el + 1e-7)
+    cz = torch.sqrt(1.0 - el + 1e-7)
+    t = lvis.float()
+    dn = diffuse_samples.shape[0]
+    means = []
+    for s in range(0, v_nrm.shape[0], v_chunk):
+        n = v_nrm[s:s + v_chunk]
+        x = uops.get_orthogonal_directions(n)
+        y = torch.linalg.cross(n, x, dim=-1)
+        dirs = (el_sqrt * torch.cos(az) * x[:, None] + el_sqrt * torch.sin(az) * y[:, None]
+                + cz * n[:, None])                                      # [c,dn,3]
+        bins4, w4 = oct_bilinear_bins_weights(dirs, baked.oct_res)      # [c,dn,4]
+        c = n.shape[0]
+        rows = torch.arange(s, s + c, device=t.device)[:, None]
+        rad = t[rows, bins4.reshape(c, dn * 4)].reshape(c, dn, 4, -1)
+        means.append((rad * w4[..., None]).sum(2).mean(1))              # [c,E*3]
+    mean = torch.cat(means)
+    V, E = mean.shape[0], mean.shape[-1] // 3
+    return mean.reshape(V, E, 3).permute(1, 0, 2).contiguous()

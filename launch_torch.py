@@ -28,8 +28,11 @@ selects ``cuda:N``. Without a GPU the run raises unless ``--device cpu`` is
 given. Under torchrun (or SLURM with ``DREAMMAT_MULTIHOST=1``) each process
 joins the process group (NCCL on the card) on ``cuda:LOCAL_RANK`` unless
 ``--gpu`` or ``--device`` names another; rank 0 alone writes ``cmd.txt`` and
-``parsed.yaml``, checkpoints and the shared caches. ``--typecheck`` turns on ``torch.autograd.set_detect_anomaly``;
-``--profile-dir`` writes a ``torch.profiler`` trace of the setup.
+``parsed.yaml``, checkpoints and the shared caches. Training logs every
+``trainer.log_every_n_steps``-th step (and the last) to the console and
+``logs/metrics.csv``. ``--typecheck`` turns on
+``torch.autograd.set_detect_anomaly``; ``--profile-dir`` writes a
+``torch.profiler`` trace of the setup.
 """
 
 from __future__ import annotations
@@ -129,7 +132,8 @@ def main(argv=None):
             datamodule.setup()
         system.fit(datamodule, max_steps=cfg.trainer.max_steps, seed=cfg.seed,
                    trial_dir=cfg.trial_dir, val_check_interval=cfg.trainer.val_check_interval,
-                   checkpoint_every=cfg.checkpoint.every_n_train_steps)
+                   checkpoint_every=cfg.checkpoint.every_n_train_steps,
+                   log_every=cfg.trainer.log_every_n_steps)
         t0 = time.time()
         system.test(datamodule, cfg.trial_dir, cfg.trainer.max_steps)
         dreammat_tpu_torch.info("test render: %.1fs", time.time() - t0)

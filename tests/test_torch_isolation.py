@@ -17,7 +17,11 @@
 - ``launch_torch.py``, ``generate_controlnet_data_torch.py``,
   ``playground_2d_torch.py``, ``webapp_torch.py`` and
   ``batch_generate_torch.py`` import nothing of JAX either; nor does
-  ``dreammat_tpu_torch/parallel/``.
+  ``dreammat_tpu_torch/parallel/``; nor do the evidence tools' twins
+  (``tools/quantify_fastpath_torch.py``, ``tools/cycles_parity_torch.py``,
+  ``tools/e2e_evidence_torch.py``), whose ``main`` raises for want of a GPU
+  unless ``--device cpu`` is given (then it gets as far as the missing
+  mesh).
 - No source file of the port calls PyTorch's fused attention.
 """
 
@@ -36,6 +40,13 @@ from dreammat_tpu_torch.utils.config import load_config
 PKG = os.path.dirname(dreammat_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dreammat_tpu")
+# each evidence twin's arguments: without --device it must raise for want of
+# a GPU; with --device cpu it gets as far as the missing mesh
+EVIDENCE_TWINS = {
+    "quantify_fastpath_torch": ["--meshes", "apple", "--apple", "/nonexistent/apple.obj"],
+    "cycles_parity_torch": ["--mesh", "/nonexistent/apple.obj"],
+    "e2e_evidence_torch": ["--mesh", "/nonexistent/apple.obj"],
+}
 
 
 def _port_modules():
@@ -77,6 +88,10 @@ def fresh(tmp_path_factory):
                                 "said.append(run(app.main, ['--prompt', 'x', '--steps', '1', "
                                 "'--out', 'outputs/none']))\n"),
         ("webapp_torch", "import webapp_torch\n"),
+        *[(tool, f"sys.path.insert(0, 'tools')\nimport {tool} as app\n"
+                 f"said.append(raised(app.main, {argv!r}))\n"
+                 f"said.append(raised(app.main, {argv + ['--device', 'cpu']!r}))\n")
+          for tool, argv in EVIDENCE_TWINS.items()],
         ("batch_generate_torch", "import batch_generate_torch as app\n"
                                  f"said.append(run(app.main, ['--jobs', {str(tmp / 'jobs.json')!r}, "
                                  f"'--shard', '0/1', '--out', {str(tmp)!r}]))\n"),
@@ -89,7 +104,15 @@ def fresh(tmp_path_factory):
             "        main(argv)\n"
             "        return 'ran'\n"
             "    except RuntimeError as e:\n"
-            "        return 'raised CUDA' if 'CUDA' in str(e) else 'raised'\n")
+            "        return 'raised CUDA' if 'CUDA' in str(e) else 'raised'\n"
+            "def raised(main, argv):\n"
+            f"    if {torch.cuda.is_available()!r}:\n"
+            "        return 'skipped'\n"
+            "    try:\n"
+            "        main(argv)\n"
+            "        return 'ran'\n"
+            "    except Exception as e:\n"
+            "        return type(e).__name__ + (' CUDA' if 'CUDA' in str(e) else '')\n")
     for name, body in steps:
         code += ("said = []\n" + body
                  + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -247,3 +270,13 @@ def test_no_fused_attention_call():
             if f.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert "scaled_dot_product_attention" not in fh.read(), f
+
+
+@pytest.mark.parametrize("tool", sorted(EVIDENCE_TWINS))
+def test_evidence_twins_need_cuda_and_import_nothing_of_jax(tool, fresh):
+    """The three evidence tools' twins import no module of JAX or of the JAX
+    package; their ``main`` raises for want of a GPU, and with ``--device
+    cpu`` runs on to the missing mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    assert fresh[tool] == (["RuntimeError CUDA", "FileNotFoundError"], [])
